@@ -1,4 +1,6 @@
-"""CUDA kernels K1 and K2 against their plain versions, on the card.
+"""CUDA kernels K1, K2 (forward and dgrad), K3 and K4 against their plain
+versions, and the conv backward on CUDA against the CPU plain route, on the
+card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90) and skip elsewhere. They
 import no JAX, so on a machine without it run them with the repository's
@@ -16,7 +18,9 @@ from warpconvnet_tpu_torch.kernels import implicit_gemm, sorted_search
 from warpconvnet_tpu_torch.models.mink_unet import MinkUNetBase
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
     generate_output_coords_and_kernel_map,
+    spatially_sparse_conv,
 )
+from warpconvnet_tpu_torch.parallel.train import make_segmentation_train_step
 from warpconvnet_tpu_torch.ops.kernel_map import kernel_offsets
 from warpconvnet_tpu_torch.ops.keys import PAD_COORD, coord_keys
 
@@ -26,6 +30,9 @@ pytestmark = pytest.mark.gpu
 # order. bf16: outputs are rounded once from fp32, so they may differ by one
 # bf16 ulp (2^-8 relative).
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+# dw (fp32 out) sums products over all rows with fp32 atomics in a varying
+# order; bf16 inputs make exact fp32 products, so both dtypes share it.
+DW_TOL = dict(rtol=1e-4, atol=1e-4)
 
 
 @pytest.fixture
@@ -137,3 +144,143 @@ def test_small_unet_kernel_path_matches_cpu_plain_path(cuda):
     assert sorted_search.kernel_map_probe.launches - k1 == 5
     assert implicit_gemm.implicit_gemm_fwd.launches - k2 == 2 * 8 + 8  # 1 block a stage
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+def _bwd_cases(cuda, c_in, c_out, dtype):
+    """(name, x, g, map) on the three table kinds, with one offset of the
+    self-map emptied so that K4 skips it everywhere; g is scaled as a mean
+    loss's gradient would be."""
+    vox = _voxels(0, cuda, c=c_in).lex_sort()
+    _, _, sub, _ = generate_output_coords_and_kernel_map(vox, 3)
+    sub = sub._replace(table=sub.table.clone())
+    sub.table[:, 4] = -1
+    sub = sub._replace(table=sub.table.contiguous())
+    _, _, down, _ = generate_output_coords_and_kernel_map(vox, 2, stride=2)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    coarse = torch.randn((2, down.table.shape[2], c_in), generator=gen, device=cuda)
+    cases = []
+    for name, x, bpt in (("submanifold", vox.features, sub), ("strided", vox.features, down),
+                         ("transposed", coarse, down.reversed())):
+        n_out = bpt.table.shape[2]
+        g = torch.randn((2, n_out, c_out), generator=gen, device=cuda) / n_out ** 0.5
+        cases.append((name, x.to(dtype).contiguous(), g.to(dtype), bpt))
+    return cases
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out", [(12, 20), (32, 32), (128, 96), (96, 96), (384, 256)])
+def test_k2_dgrad_and_k3_match_plain(cuda, dtype, c_in, c_out):
+    for name, x, g, bpt in _bwd_cases(cuda, c_in, c_out, dtype):
+        k = bpt.table.shape[1]
+        w = (torch.randn((k, c_in, c_out), device=cuda) / (k * c_in) ** 0.5).to(dtype)
+        fwd, dg, wg = (implicit_gemm.implicit_gemm_fwd.launches,
+                       implicit_gemm.implicit_gemm_dgrad.launches,
+                       implicit_gemm.implicit_gemm_wgrad.launches)
+        dx = implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev)
+        dw = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
+        ref_dx = implicit_gemm.implicit_gemm_dgrad_plain(g, w, bpt.rev)
+        ref_dw = implicit_gemm.implicit_gemm_wgrad_plain(x, g, bpt.table)
+        torch.cuda.synchronize()
+        assert (implicit_gemm.implicit_gemm_fwd.launches, implicit_gemm.implicit_gemm_dgrad.launches,
+                implicit_gemm.implicit_gemm_wgrad.launches) == (fwd, dg + 1, wg + 1), name
+        assert dx.dtype == dtype and dx.shape == x.shape, name
+        assert dw.dtype == torch.float32 and dw.shape == (k, c_in, c_out), name
+        torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
+        torch.testing.assert_close(dw, ref_dw, **DW_TOL, msg=name)
+        unreached = (bpt.rev < 0).all(dim=1)
+        assert bool((dx[unreached] == 0).all()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out", [(12, 20), (32, 32), (128, 96), (96, 96), (384, 256)])
+def test_k4_matches_plain_and_the_split_pair(cuda, dtype, c_in, c_out):
+    name, x, g, bpt = _bwd_cases(cuda, c_in, c_out, dtype)[0]
+    w = (torch.randn((27, c_in, c_out), device=cuda) / (27 * c_in) ** 0.5).to(dtype)
+    before = implicit_gemm.implicit_gemm_bwd_fused.launches
+    dx, dw = implicit_gemm.implicit_gemm_bwd_fused(x, g, w, bpt.table, bpt.offsets)
+    ref_dx, ref_dw = implicit_gemm.implicit_gemm_bwd_fused_plain(x, g, w, bpt.table, bpt.offsets)
+    split_dx = implicit_gemm.implicit_gemm_dgrad(g, w, bpt.table.flip(1).contiguous())
+    split_dw = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
+    torch.cuda.synchronize()
+    assert implicit_gemm.implicit_gemm_bwd_fused.launches == before + 1
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    for rdx, rdw in ((ref_dx, ref_dw), (split_dx, split_dw)):
+        torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
+        torch.testing.assert_close(dw, rdw, **DW_TOL)
+    assert bool((dw[4] == 0).all())  # the emptied offset adds exactly zero
+    pad = (bpt.table < 0).all(dim=1)
+    assert bool(pad.any()) and bool((dx[pad] == 0).all())
+
+
+def test_k4_and_k3_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    vox = _voxels(0, cuda, c=8).lex_sort()
+    _, _, sub, _ = generate_output_coords_and_kernel_map(vox, 3)
+    x, g, w = vox.features, vox.features.clone(), torch.zeros(27, 8, 8, device=cuda)
+    with pytest.raises(ValueError):
+        implicit_gemm.implicit_gemm_bwd_fused(x.half(), g.half(), w.half(), sub.table, sub.offsets)
+    with pytest.raises(ValueError):
+        implicit_gemm.implicit_gemm_bwd_fused(x, g, w.to(torch.bfloat16), sub.table, sub.offsets)
+    with pytest.raises(ValueError):
+        implicit_gemm.implicit_gemm_bwd_fused(x[:, :-1], g[:, :-1], w, sub.table, sub.offsets)
+    with pytest.raises(ValueError):
+        implicit_gemm.implicit_gemm_wgrad(x, g, sub.table.long())
+    with pytest.raises(ValueError):
+        implicit_gemm.implicit_gemm_wgrad(x, g[:, :, :4].contiguous().transpose(1, 2), sub.table)
+    with pytest.raises(ValueError):
+        implicit_gemm.implicit_gemm_wgrad(x, g, sub.table, accum_dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["submanifold", "strided"])
+def test_conv_backward_on_cuda_matches_cpu_plain_route(cuda, kind):
+    """fp32 grads of features and weight through ConvGemm: kernels on the
+    card (K4, or K2-dgrad and K3) against the plain versions on the CPU."""
+    vox = _voxels(5, "cpu", c=16).lex_sort()
+    ks, st = (3, 1) if kind == "submanifold" else (2, 2)
+    w0 = torch.randn((ks ** 3, 16, 24), generator=torch.Generator().manual_seed(0)) / 12
+    r = None
+    grads = []
+    for dev in ("cpu", cuda):
+        v = vox.to(dev)
+        x = v.features.clone().requires_grad_(True)
+        w = w0.to(dev).detach().requires_grad_(True)
+        out, _ = spatially_sparse_conv(v.replace(features=x), w, ks, stride=st)
+        if r is None:
+            r = torch.randn(out.features.shape, generator=torch.Generator().manual_seed(1))
+        (out.features * r.to(dev)).sum().backward()
+        grads.append((x.grad.cpu(), w.grad.cpu()))
+    torch.testing.assert_close(grads[1][0], grads[0][0], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(grads[1][1], grads[0][1], rtol=1e-4, atol=1e-4)
+
+
+def test_small_unet_train_step_on_cuda_gives_every_parameter_a_grad(cuda):
+    """On CUDA every parameter gets a finite gradient (a conv whose output
+    lost its grad_fn would leave its weight's grad None), with 5 K1, 24 K2
+    forward, 8 K2-dgrad, 8 K3 and 16 K4 launches, and the loss and the
+    gradients agree with the CPU plain route."""
+    kw = dict(planes=(8, 16, 16, 16, 16, 16, 8, 8), layers=(1,) * 8, init_dim=8)
+    vox = _voxels(3, "cpu", n=1024, c=3).lex_sort()
+    labels = torch.randint(0, 5, vox.coords.shape[:2], generator=torch.Generator().manual_seed(0))
+    results = []
+    for dev in ("cpu", cuda):
+        model = MinkUNetBase(3, 5, generator=torch.Generator().manual_seed(0), **kw).to(dev)
+        step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), 1e-3), 5)
+        counts = [f.launches for f in (sorted_search.kernel_map_probe,
+                                       implicit_gemm.implicit_gemm_fwd,
+                                       implicit_gemm.implicit_gemm_dgrad,
+                                       implicit_gemm.implicit_gemm_wgrad,
+                                       implicit_gemm.implicit_gemm_bwd_fused)]
+        loss = float(step(vox.to(dev), labels.to(dev))["loss"])
+        after = [f.launches for f in (sorted_search.kernel_map_probe,
+                                      implicit_gemm.implicit_gemm_fwd,
+                                      implicit_gemm.implicit_gemm_dgrad,
+                                      implicit_gemm.implicit_gemm_wgrad,
+                                      implicit_gemm.implicit_gemm_bwd_fused)]
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
+        results.append((loss, {n: g.cpu() for n, g in grads.items()},
+                        [a - b for a, b in zip(after, counts)]))
+    assert results[0][2] == [0] * 5  # CPU: plain versions only
+    assert results[1][2] == [5, 24, 8, 8, 16]
+    assert abs(results[1][0] - results[0][0]) <= 1e-5 * abs(results[0][0])
+    for n, g in results[0][1].items():
+        torch.testing.assert_close(results[1][1][n], g, rtol=1e-3, atol=1e-4 * float(g.abs().max()))

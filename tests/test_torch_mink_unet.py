@@ -162,6 +162,9 @@ def test_minkunet18_names_follow_the_jax_scopes():
 
 
 def test_port_imports_no_jax():
-    code = "import sys, warpconvnet_tpu_torch.models.mink_unet; assert 'jax' not in sys.modules"
+    code = (
+        "import sys, warpconvnet_tpu_torch.models.mink_unet, warpconvnet_tpu_torch.parallel.train, "
+        "warpconvnet_tpu_torch.models.convert; assert 'jax' not in sys.modules"
+    )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True)

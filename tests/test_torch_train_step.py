@@ -1,0 +1,228 @@
+"""Port parity for the training step: the small ``MinkUNetBase`` of
+tests/test_torch_mink_unet.py takes one and two steps of
+``make_segmentation_train_step`` with Adam(1e-3) in both packages, from the
+same seeded JAX variables carried over by ``variables_to_state_dict``.
+
+JAX runs its own step under jit on the same lex-sorted rows, left unflagged
+(its explicit backends on the CPU). Its gradients are read back from Adam's
+first moment (``mu_t = 0.9 mu_{t-1} + 0.1 g_t``), so the step under test is
+the JAX function itself. fp32 tolerances: the loss within 1e-5 relative,
+each gradient within 1e-4 of its tensor's largest entry, BN running stats
+at 1e-5. Adam's first steps move a parameter by about ``lr * sign(g)``, so
+post-step parameters are compared tightly only where every step's
+gradient is above 1e-4 of its tensor's largest, and within 2 lr a step
+elsewhere."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import optax
+import pytest
+import torch
+
+from tests.test_torch_mink_unet import CONFIG, _scenes, _seeded_variables
+from tests.test_torch_sparse_conv import _inputs
+from warpconvnet_tpu import constants as jconstants
+from warpconvnet_tpu.geometry.voxels import Voxels as JVoxels
+from warpconvnet_tpu.models.mink_unet import MinkUNetBase as JMinkUNetBase
+from warpconvnet_tpu.nn.modules.norms import BatchNorm as JBatchNorm
+from warpconvnet_tpu.parallel.train import TrainState
+from warpconvnet_tpu.parallel.train import make_segmentation_train_step as jax_train_step
+from warpconvnet_tpu_torch import constants
+from warpconvnet_tpu_torch.geometry.voxels import Voxels
+from warpconvnet_tpu_torch.models.convert import variables_to_state_dict
+from warpconvnet_tpu_torch.models.mink_unet import MinkUNetBase
+from warpconvnet_tpu_torch.nn.modules.norms import BatchNorm
+from warpconvnet_tpu_torch.parallel.train import make_segmentation_train_step
+
+LR = 1e-3
+B1 = 0.9
+NUM_CLASSES = 5
+STEPS = 2
+GRID = 32
+
+
+def _run_jax(jmodel, variables, jvox, labels, steps):
+    """[(loss, grads tree, state)] after each step."""
+    tx = optax.adam(LR)
+    params = variables["params"]
+    state = TrainState(params, variables["batch_stats"], tx.init(params), jnp.zeros((), jnp.int32))
+    step = jax_train_step(jmodel, tx, NUM_CLASSES)
+    out, mu_prev = [], None
+    for _ in range(steps):
+        state, metrics = step(state, jvox, jnp.asarray(labels))
+        mu = state.opt_state[0].mu
+        if mu_prev is None:
+            grads = jax.tree_util.tree_map(lambda m: m / (1 - B1), mu)
+        else:
+            grads = jax.tree_util.tree_map(lambda m, p: (m - B1 * p) / (1 - B1), mu, mu_prev)
+        mu_prev = mu
+        out.append((float(metrics["loss"]), grads, state))
+    return out
+
+
+def _run_torch(variables, vox, labels, steps):
+    """[(loss, {name: grad}, state dict)] after each step."""
+    model = MinkUNetBase(**CONFIG)
+    model.load_state_dict(variables_to_state_dict(variables, model))
+    opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(B1, 0.999), eps=1e-8)
+    step = make_segmentation_train_step(model, opt, NUM_CLASSES)
+    out = []
+    for _ in range(steps):
+        metrics = step(vox, torch.from_numpy(labels))
+        grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        state = {n: v.detach().clone() for n, v in model.state_dict().items()}
+        out.append((float(metrics["loss"]), grads, state))
+    return out
+
+
+def _both(dtype, steps):
+    coords, feats, nv = _scenes(grid=GRID)
+    jvox = JVoxels.create(coords, feats, nv).lex_sort().replace(lex_sorted=False)
+    vox = Voxels.create(coords, feats, nv).lex_sort()
+    labels = np.random.default_rng(2).integers(0, NUM_CLASSES, size=nv.shape + (coords.shape[1],))
+    labels = labels.astype(np.int32)
+    jmodel = JMinkUNetBase(**CONFIG)
+    variables = _seeded_variables(jmodel, jvox)
+    try:
+        constants.set_compute_dtype(dtype)
+        jconstants.set_compute_dtype(dtype)
+        ref = _run_jax(jmodel, variables, jvox, labels, steps)
+        got = _run_torch(variables, vox, labels, steps)
+    finally:
+        constants.set_compute_dtype(None)
+        jconstants.set_compute_dtype(None)
+    return got, ref, variables_to_state_dict(variables)
+
+
+@pytest.fixture(scope="module")
+def fp32_steps():
+    return _both(None, STEPS)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_loss_matches_jax(fp32_steps, i):
+    got, ref, _ = fp32_steps
+    assert abs(got[i][0] - ref[i][0]) <= 1e-5 * abs(ref[i][0])
+    if i:
+        assert got[i][0] < got[0][0]  # the step moved downhill
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_every_gradient_matches_jax(fp32_steps, i):
+    got, ref, _ = fp32_steps
+    want = variables_to_state_dict({"params": ref[i][1]})
+    assert set(want) == set(got[i][1])
+    for name, g in got[i][1].items():
+        scale = float(want[name].abs().max())
+        assert scale > 0, name
+        err = float((g - want[name]).abs().max())
+        assert err <= 1e-4 * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_running_stats_match_jax(fp32_steps, i):
+    got, ref, _ = fp32_steps
+    want = variables_to_state_dict(ref[i][2])
+    stats = [n for n in want if n.endswith((".mean", ".var"))]
+    assert len(stats) == 2 * sum(1 for n in want if n.endswith(".mean")) > 0
+    for name in stats:
+        torch.testing.assert_close(got[i][2][name], want[name], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("i", range(STEPS))
+def test_post_step_params_match_jax(fp32_steps, i):
+    got, ref, start = fp32_steps
+    want = variables_to_state_dict(ref[i][2])
+    grads = [variables_to_state_dict({"params": r[1]}) for r in ref[: i + 1]]
+    for name, g in grads[0].items():
+        p, pj = got[i][2][name], want[name]
+        assert not torch.equal(pj, start[name]), name  # the step changed it
+        firm = torch.ones_like(g, dtype=torch.bool)
+        for gs in grads:
+            firm &= gs[name].abs() > 1e-4 * gs[name].abs().max()
+        diff = (p - pj).abs()
+        assert float(diff[firm].max()) <= 1e-5 + 1e-5 * float(pj.abs().max()), name
+        assert float(diff.max()) <= 2 * LR * (i + 1), name
+
+
+@pytest.fixture(scope="module")
+def bf16_step():
+    return _both("bfloat16", 1)
+
+
+def _flat(grads, names):
+    return torch.cat([grads[n].flatten() for n in names])
+
+
+def test_bf16_step_matches_jax(bf16_step, fp32_steps):
+    """bf16 compute on both sides. One bf16 BN backward alone is within
+    ~1e-2 of fp32, but through the whole train step each package's bf16
+    gradients are 16-20% (relative Frobenius, all parameters) from the fp32
+    gradients of this small model, and the two packages round at different
+    places (XLA fuses elementwise chains in fp32), so they differ from each
+    other by as much: 0.19 measured. The test holds the port's bf16
+    gradients to no worse than 1.25x JAX's own bf16 error against the fp32
+    gradients (measured 0.82x), their difference from JAX's bf16 gradients
+    to 0.3, and the loss to 5e-4 relative (measured 2.3e-4)."""
+    got, ref, _ = bf16_step
+    loss, grads, _ = got[0]
+    assert all(bool(torch.isfinite(t).all()) for t in grads.values())
+    assert abs(loss - ref[0][0]) <= 5e-4 * abs(ref[0][0]), (loss, ref[0][0])
+    want16 = variables_to_state_dict({"params": ref[0][1]})
+    want32 = variables_to_state_dict({"params": fp32_steps[1][0][1]})
+    names = sorted(want32)
+    g, g16, g32 = _flat(grads, names), _flat(want16, names), _flat(want32, names)
+    port_err = float((g - g32).norm() / g32.norm())
+    jax_err = float((g16 - g32).norm() / g32.norm())
+    assert port_err <= 1.25 * jax_err, (port_err, jax_err)
+    rel = float((g - g16).norm() / g16.norm())
+    assert rel <= 0.3, rel
+
+
+def test_train_mode_batch_norm_grads_and_stats_match_jax():
+    """Train-mode BN alone against JAX ``BatchNorm(use_running_average=
+    False)``: fp32 statistics over valid rows, the gradient through them,
+    and the running-stat update with momentum 0.9."""
+    tv, jv = _inputs(21)
+    rng = np.random.default_rng(21)
+    c = tv.num_channels
+    gamma, beta = rng.uniform(0.5, 1.5, c).astype(np.float32), rng.normal(size=c).astype(np.float32)
+    mean0, var0 = rng.normal(size=c).astype(np.float32), rng.uniform(0.5, 2, c).astype(np.float32)
+    r = rng.standard_normal(tuple(tv.features.shape)).astype(np.float32)
+    jbn = JBatchNorm(c)
+    stats = {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)}
+
+    def jloss(x, scale, bias):
+        out, upd = jbn.apply(
+            {"params": {"scale": scale, "bias": bias}, "batch_stats": stats},
+            jv.replace(features=x), use_running_average=False, mutable=["batch_stats"],
+        )
+        return jnp.sum(out.features * r), upd["batch_stats"]
+
+    (jl, upd), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
+        jv.features, jnp.asarray(gamma), jnp.asarray(beta)
+    )
+    bn = BatchNorm(c).train()
+    bn.load_state_dict({"weight": torch.from_numpy(gamma), "bias": torch.from_numpy(beta),
+                        "mean": torch.from_numpy(mean0), "var": torch.from_numpy(var0)})
+    x = tv.features.clone().requires_grad_(True)
+    loss = (bn(tv.replace(features=x)).features * torch.from_numpy(r)).sum()
+    loss.backward()
+    tol = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(loss.item(), float(jl), rtol=1e-5)
+    for got, want in ((x.grad, jgrads[0]), (bn.weight.grad, jgrads[1]), (bn.bias.grad, jgrads[2])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **tol)
+    assert np.all(x.grad.numpy()[~tv.valid_mask().numpy()] == 0)  # pad rows get no gradient
+    np.testing.assert_allclose(bn.mean.numpy(), np.asarray(upd["mean"]), **tol)
+    np.testing.assert_allclose(bn.var.numpy(), np.asarray(upd["var"]), **tol)
+
+
+def test_convert_takes_a_post_step_train_state(fp32_steps):
+    """A JAX TrainState maps to the port's parameters and buffers (its
+    optimizer state is left out) and loads into the model."""
+    _, ref, _ = fp32_steps
+    model = MinkUNetBase(**CONFIG)
+    sd = variables_to_state_dict(ref[-1][2], model)
+    model.load_state_dict(sd)
+    assert set(sd) == set(model.state_dict())

@@ -28,6 +28,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "tiles.cuh"
+
 namespace {
 
 constexpr int BM = 64;  // output rows per block
@@ -125,20 +127,7 @@ constexpr int H_THREADS = 128;
 constexpr int A_LD = H_BK + 8;  // padded strides (elements), multiples of 8
 constexpr int B_LD = BN + 8;
 constexpr int C_LD = BN + 4;
-
-// Copy 16 consecutive bf16 (one row segment) from global to shared memory:
-// two 16-byte loads when the caller has checked alignment (VEC), else
-// element by element with the ragged edge and missing rows zeroed.
-template <bool VEC>
-__device__ __forceinline__ void copy16(bf16* dst, const bf16* src, int n_ok) {
-  if (VEC && n_ok >= 16) {
-    reinterpret_cast<uint4*>(dst)[0] = reinterpret_cast<const uint4*>(src)[0];
-    reinterpret_cast<uint4*>(dst)[1] = reinterpret_cast<const uint4*>(src)[1];
-  } else {
-#pragma unroll
-    for (int j = 0; j < 16; ++j) dst[j] = j < n_ok ? src[j] : __float2bfloat16(0.f);
-  }
-}
+using wct::copy16;
 
 // VEC: C_in and C_out are multiples of 8 and x, w are 16-byte aligned, so
 // every full 16-element row segment can move as two 16-byte vectors.
@@ -238,9 +227,7 @@ extern "C" int wct_igemm_fwd(const void* x, const void* w, const int32_t* table,
         static_cast<const float*>(x), static_cast<const float*>(w), table,
         static_cast<float*>(out), n_in, n_out, k_vol, c_in, c_out);
   } else if (dtype == 1) {
-    const bool vec = c_in % 8 == 0 && c_out % 8 == 0 &&
-                     reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const bool vec = wct::vec_ok(c_in, c_out, x, w);
     const bf16* xh = static_cast<const bf16*>(x);
     const bf16* wh = static_cast<const bf16*>(w);
     bf16* oh = static_cast<bf16*>(out);

@@ -3,8 +3,8 @@
 Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use, writes into ``warpconvnet_tpu_torch/_build/`` and is
-reused while the sources and flags hash the same. Nothing here runs at
-import time.
+reused while the sources, the headers (``csrc/*.cuh``) and the flags hash
+the same. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -39,6 +39,12 @@ _SIGNATURES = {
     # int wct_igemm_fwd(x, w, table, out, b, n_in, n_out, k, c_in, c_out,
     #                   dtype, stream)
     "wct_igemm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_igemm_wgrad(x, g, table, dw, b, n_in, n_out, k, c_in, c_out,
+    #                     dtype, stream)
+    "wct_igemm_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_igemm_bwd_fused(x, g, w, table, dx, dw, b, n, k, c_in, c_out,
+    #                         dtype, stream)
+    "wct_igemm_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -57,9 +63,9 @@ def _sources():
 
 
 def library_path() -> str:
-    """Path of the library for the current sources and flags."""
+    """Path of the library for the current sources, headers and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(src).encode())
         with open(src, "rb") as f:
             h.update(f.read())

@@ -1,21 +1,47 @@
-"""Implicit-GEMM sparse-conv forward: K2, the port of
-``warpconvnet_tpu/kernels/implicit_gemm.py`` ``_igemm_kernel`` (:546) and its
-entry ``implicit_gemm_fwd`` (:1022).
+"""Implicit-GEMM sparse-conv kernels: the forward K2 and, for the backward,
+K2 again as dgrad, the weight gradient K3 and the fused self-map backward
+K4. Ports of ``warpconvnet_tpu/kernels/implicit_gemm.py``:
 
-``out[b, o] = sum_k x[b, table[b, k, o]] @ w[k]``, where a -1 entry adds
-exactly zero. fp32 or bf16 inputs, fp32 accumulation, output in ``x.dtype``.
+- K2 ``_igemm_kernel`` (:546, entry ``implicit_gemm_fwd`` :1022):
+  ``out[b, o] = sum_k x[b, table[b, k, o]] @ w[k]``; as dgrad
+  (``nn/functional/sparse_conv.py:301-311``) it runs on ``(g, w^T, rev)``.
+- K3 ``_igemm_wgrad_kernel`` (:683, entry ``implicit_gemm_wgrad`` :1122):
+  ``dw[k] = sum_{b, o} x[b, table[b, k, o]]^T @ g[b, o]``, fp32.
+- K4 ``_igemm_bwd_fused_kernel`` (:801, entry ``implicit_gemm_bwd_fused``
+  :1212): dx and dw of a symmetric self-map in one pass.
 
-:func:`implicit_gemm_fwd` runs the CUDA kernel (``csrc/implicit_gemm.cu``) on
-CUDA tensors and :func:`implicit_gemm_fwd_plain` on CPU tensors.
+A -1 table entry adds exactly zero. Inputs are fp32 or bf16 with fp32
+accumulation; conv outputs and dx come back in the input dtype, dw in fp32.
+Each wrapper runs its CUDA kernel (``csrc/implicit_gemm*.cu``) on CUDA
+tensors and its ``*_plain`` version on CPU tensors, counts its launches in
+``.launches``, and raises on what its kernel does not take.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from warpconvnet_tpu_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def offsets_symmetric(offsets: np.ndarray) -> bool:
+    """offsets[K-1-k] == -offsets[k] for all k (centred odd kernels): on a
+    self-map the reverse table is then the table with its offset axis
+    flipped."""
+    offsets = np.asarray(offsets)
+    return bool(np.array_equal(offsets[::-1], -offsets))
+
+
+def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x [B, N, C] rows at idx [B, M]; zero rows where idx is -1."""
+    t = idx.to(torch.int64)
+    rows = torch.gather(x, 1, t.clamp(min=0)[..., None].expand(-1, -1, x.shape[-1]))
+    return torch.where((t >= 0)[..., None], rows, 0)
 
 
 def implicit_gemm_fwd_plain(
@@ -25,15 +51,109 @@ def implicit_gemm_fwd_plain(
     accum_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Per-offset gather + matmul (the JAX ``_fwd_impl`` scan, unrolled)."""
-    b, _, c_in = x.shape
+    b = x.shape[0]
     k_vol, n_out = table.shape[1], table.shape[2]
     acc = torch.zeros((b, n_out, weight.shape[-1]), dtype=accum_dtype, device=x.device)
     for k in range(k_vol):
-        t = table[:, k].to(torch.int64)
-        rows = torch.gather(x, 1, t.clamp(min=0)[..., None].expand(-1, -1, c_in))
-        rows = torch.where((t >= 0)[..., None], rows, 0).to(accum_dtype)
-        acc += rows @ weight[k].to(accum_dtype)
+        acc += _gather_rows(x, table[:, k]).to(accum_dtype) @ weight[k].to(accum_dtype)
     return acc.to(x.dtype)
+
+
+def implicit_gemm_dgrad_plain(
+    g: torch.Tensor,  # [B, N_out, C_out]
+    weight: torch.Tensor,  # [K, C_in, C_out]
+    rev: torch.Tensor,  # [B, K, N_in] int32
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """dx [B, N_in, C_in] in g's dtype: the forward on (g, w^T, rev), the
+    JAX ``_dgrad_impl``."""
+    return implicit_gemm_fwd_plain(g, weight.transpose(1, 2), rev, accum_dtype)
+
+
+def implicit_gemm_wgrad_plain(
+    x: torch.Tensor,  # [B, N_in, C_in]
+    g: torch.Tensor,  # [B, N_out, C_out]
+    table: torch.Tensor,  # [B, K, N_out] int32
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """dw [K, C_in, C_out] in ``accum_dtype``: per offset a gather and a
+    contraction over all rows of all scenes (the JAX ``_wgrad_impl``)."""
+    g = g.to(accum_dtype)
+    return torch.stack([
+        torch.einsum("bmc,bmd->cd", _gather_rows(x, table[:, k]).to(accum_dtype), g)
+        for k in range(table.shape[1])
+    ])
+
+
+def _check_self_map(name: str, x: torch.Tensor, table: torch.Tensor, offsets) -> None:
+    if not offsets_symmetric(offsets):
+        raise ValueError(f"{name}: offsets are not symmetric (offsets[K-1-k] != -offsets[k])")
+    if len(offsets) != table.shape[1]:
+        raise ValueError(f"{name}: {len(offsets)} offsets for a table of {table.shape[1]}")
+    if x.shape[1] != table.shape[2]:
+        raise ValueError(
+            f"{name}: needs a self-map, got n_in={x.shape[1]} != n_out={table.shape[2]}"
+        )
+
+
+def implicit_gemm_bwd_fused_plain(
+    x: torch.Tensor,  # [B, N, C_in]
+    g: torch.Tensor,  # [B, N, C_out]
+    weight: torch.Tensor,  # [K, C_in, C_out]
+    table: torch.Tensor,  # [B, K, N] int32, a symmetric self-map
+    offsets: np.ndarray,
+    accum_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dx in x's dtype, dw in ``accum_dtype``): dgrad through the K-flipped
+    table (the self-map's reverse) and wgrad through the table."""
+    _check_self_map("implicit_gemm_bwd_fused", x, table, offsets)
+    dx = implicit_gemm_dgrad_plain(g, weight, table.flip(1), accum_dtype).to(x.dtype)
+    return dx, implicit_gemm_wgrad_plain(x, g, table, accum_dtype)
+
+
+def _cuda_args(name, accum_dtype, tensors, table):
+    """Validate what every kernel of this module needs: CUDA, fp32
+    accumulation, one float dtype, an int32 table, 3-D contiguous inputs on
+    one device."""
+    x = tensors[0]
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {x.device}")
+    if accum_dtype != torch.float32:
+        raise ValueError(f"{name}: the CUDA kernel accumulates in float32 only")
+    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in tensors):
+        raise ValueError(
+            f"{name}: inputs must share float32 or bfloat16, got "
+            f"{[str(t.dtype) for t in tensors]}"
+        )
+    if table.dtype != torch.int32:
+        raise ValueError(f"{name}: table must be int32, got {table.dtype}")
+    for t in (*tensors, table):
+        if t.ndim != 3:
+            raise ValueError(f"{name}: inputs must be 3-D")
+        if t.device != x.device:
+            raise ValueError(f"{name}: inputs on different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: inputs must be contiguous")
+    return _build.load_library(), torch.cuda.current_stream(x.device).cuda_stream
+
+
+def _launch_fwd(name, x, weight, table, accum_dtype) -> torch.Tensor:
+    lib, stream = _cuda_args(name, accum_dtype, (x, weight), table)
+    b, n_in, c_in = x.shape
+    k_vol, c_in_w, c_out = weight.shape
+    if c_in_w != c_in or table.shape[0] != b or table.shape[1] != k_vol:
+        raise ValueError(
+            f"{name}: shapes x {tuple(x.shape)}, weight {tuple(weight.shape)}, "
+            f"table {tuple(table.shape)} disagree"
+        )
+    n_out = table.shape[2]
+    out = torch.empty((b, n_out, c_out), dtype=x.dtype, device=x.device)
+    rc = lib.wct_igemm_fwd(
+        x.data_ptr(), weight.data_ptr(), table.data_ptr(), out.data_ptr(),
+        b, n_in, n_out, k_vol, c_in, c_out, _DTYPE_CODES[x.dtype], stream,
+    )
+    _build.check(lib, rc, name)
+    return out
 
 
 def implicit_gemm_fwd(
@@ -45,42 +165,93 @@ def implicit_gemm_fwd(
     """K2 on CUDA tensors, :func:`implicit_gemm_fwd_plain` on CPU tensors."""
     if x.device.type == "cpu":
         return implicit_gemm_fwd_plain(x, weight, table, accum_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"implicit_gemm_fwd: unsupported device {x.device}")
-    if accum_dtype != torch.float32:
-        raise ValueError("implicit_gemm_fwd: the CUDA kernel accumulates in float32 only")
-    if x.dtype not in _DTYPE_CODES or weight.dtype != x.dtype:
-        raise ValueError(
-            f"implicit_gemm_fwd: x and weight must share float32 or bfloat16, "
-            f"got {x.dtype} and {weight.dtype}"
-        )
-    if table.dtype != torch.int32:
-        raise ValueError(f"implicit_gemm_fwd: table must be int32, got {table.dtype}")
-    if x.ndim != 3 or weight.ndim != 3 or table.ndim != 3:
-        raise ValueError("implicit_gemm_fwd: x, weight and table must be 3-D")
-    b, n_in, c_in = x.shape
-    k_vol, c_in_w, c_out = weight.shape
-    if c_in_w != c_in or table.shape[0] != b or table.shape[1] != k_vol:
-        raise ValueError(
-            f"implicit_gemm_fwd: shapes x {tuple(x.shape)}, weight "
-            f"{tuple(weight.shape)}, table {tuple(table.shape)} disagree"
-        )
-    for t in (weight, table):
-        if t.device != x.device:
-            raise ValueError("implicit_gemm_fwd: inputs on different devices")
-    if not (x.is_contiguous() and weight.is_contiguous() and table.is_contiguous()):
-        raise ValueError("implicit_gemm_fwd: inputs must be contiguous")
-    n_out = table.shape[2]
-    out = torch.empty((b, n_out, c_out), dtype=x.dtype, device=x.device)
-    lib = _build.load_library()
-    rc = lib.wct_igemm_fwd(
-        x.data_ptr(), weight.data_ptr(), table.data_ptr(), out.data_ptr(),
-        b, n_in, n_out, k_vol, c_in, c_out, _DTYPE_CODES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, rc, "implicit_gemm_fwd")
+    out = _launch_fwd("implicit_gemm_fwd", x, weight, table, accum_dtype)
     implicit_gemm_fwd.launches += 1
     return out
 
 
+def implicit_gemm_dgrad(
+    g: torch.Tensor,
+    weight: torch.Tensor,
+    rev: torch.Tensor,
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K2 on ``(g, w^T, rev)`` on CUDA tensors (counted here, not in
+    ``implicit_gemm_fwd.launches``), :func:`implicit_gemm_dgrad_plain` on
+    CPU tensors."""
+    if g.device.type == "cpu":
+        return implicit_gemm_dgrad_plain(g, weight, rev, accum_dtype)
+    wt = weight.transpose(1, 2).contiguous()
+    dx = _launch_fwd("implicit_gemm_dgrad", g, wt, rev, accum_dtype)
+    implicit_gemm_dgrad.launches += 1
+    return dx
+
+
+def implicit_gemm_wgrad(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    table: torch.Tensor,
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """K3 on CUDA tensors, :func:`implicit_gemm_wgrad_plain` on CPU tensors."""
+    if x.device.type == "cpu":
+        return implicit_gemm_wgrad_plain(x, g, table, accum_dtype)
+    name = "implicit_gemm_wgrad"
+    lib, stream = _cuda_args(name, accum_dtype, (x, g), table)
+    b, n_in, c_in = x.shape
+    k_vol, n_out = table.shape[1], table.shape[2]
+    if g.shape[:2] != (b, n_out) or table.shape[0] != b:
+        raise ValueError(
+            f"{name}: shapes x {tuple(x.shape)}, g {tuple(g.shape)}, "
+            f"table {tuple(table.shape)} disagree"
+        )
+    c_out = g.shape[2]
+    dw = torch.zeros((k_vol, c_in, c_out), dtype=torch.float32, device=x.device)
+    rc = lib.wct_igemm_wgrad(
+        x.data_ptr(), g.data_ptr(), table.data_ptr(), dw.data_ptr(),
+        b, n_in, n_out, k_vol, c_in, c_out, _DTYPE_CODES[x.dtype], stream,
+    )
+    _build.check(lib, rc, name)
+    implicit_gemm_wgrad.launches += 1
+    return dw
+
+
+def implicit_gemm_bwd_fused(
+    x: torch.Tensor,
+    g: torch.Tensor,
+    weight: torch.Tensor,
+    table: torch.Tensor,
+    offsets: np.ndarray,
+    accum_dtype: torch.dtype = torch.float32,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4 on CUDA tensors, :func:`implicit_gemm_bwd_fused_plain` on CPU
+    tensors. Raises unless ``table`` is a self-map (n_in == n_out) over
+    symmetric ``offsets``."""
+    if x.device.type == "cpu":
+        return implicit_gemm_bwd_fused_plain(x, g, weight, table, offsets, accum_dtype)
+    name = "implicit_gemm_bwd_fused"
+    _check_self_map(name, x, table, offsets)
+    lib, stream = _cuda_args(name, accum_dtype, (x, g, weight), table)
+    b, n, c_in = x.shape
+    k_vol, c_in_w, c_out = weight.shape
+    if (g.shape != (b, n, c_out) or c_in_w != c_in or table.shape[:2] != (b, k_vol)):
+        raise ValueError(
+            f"{name}: shapes x {tuple(x.shape)}, g {tuple(g.shape)}, weight "
+            f"{tuple(weight.shape)}, table {tuple(table.shape)} disagree"
+        )
+    dx = torch.empty_like(x)
+    dw = torch.zeros((k_vol, c_in, c_out), dtype=torch.float32, device=x.device)
+    rc = lib.wct_igemm_bwd_fused(
+        x.data_ptr(), g.data_ptr(), weight.data_ptr(), table.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), b, n, k_vol, c_in, c_out,
+        _DTYPE_CODES[x.dtype], stream,
+    )
+    _build.check(lib, rc, name)
+    implicit_gemm_bwd_fused.launches += 1
+    return dx, dw
+
+
 implicit_gemm_fwd.launches = 0
+implicit_gemm_dgrad.launches = 0
+implicit_gemm_wgrad.launches = 0
+implicit_gemm_bwd_fused.launches = 0

@@ -59,11 +59,18 @@ def _port_name(path) -> str:
 def variables_to_state_dict(
     variables: Mapping, model: Optional[nn.Module] = None
 ) -> Dict[str, torch.Tensor]:
-    """Map a JAX MinkUNet variable tree (numpy leaves) onto port names.
+    """Map a JAX MinkUNet variable tree (numpy or jax leaves) onto port names.
+
+    ``variables`` is ``{"params": ..., "batch_stats": ...}``, a tree of one
+    collection (such as gradients, ``{"params": grads}``), or a JAX
+    ``TrainState`` after a step, whose ``params`` and ``batch_stats`` are
+    taken (its optimizer state is not).
 
     Raises on a JAX variable with no port counterpart; given ``model``, also
     on any of its state-dict entries left without a value, and on shape
     mismatches."""
+    if hasattr(variables, "params") and hasattr(variables, "batch_stats"):
+        variables = {"params": variables.params, "batch_stats": variables.batch_stats}
     out = {}
     for path, value in _flatten(variables):
         out[_port_name(path)] = torch.from_numpy(np.array(value, np.float32))

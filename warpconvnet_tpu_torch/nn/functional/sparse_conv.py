@@ -1,10 +1,19 @@
-"""Spatially sparse convolution, forward (counterpart of
+"""Spatially sparse convolution (counterpart of
 ``warpconvnet_tpu/nn/functional/sparse_conv.py``).
 
 The kernel map is a dense pair table built by sort and search (kernel K1
 for 3^3 submanifold maps) or, for even kernel == stride convs, by the
 parity partition. Every conv that uses a table, whatever its stride or
-direction, runs the implicit-GEMM kernel K2; 1x1 convs are a matmul.
+direction, runs the implicit-GEMM kernel K2 forward through
+:class:`ConvGemm`; 1x1 convs are a matmul.
+
+Backward routing, one rule and no knob: a symmetric self-map (every 3^3
+submanifold conv) runs the fused K4; every other table (strided and
+transposed) runs K2 as dgrad through the reverse table and K3 for the
+weight gradient. The JAX auto dispatch sends strided and transposed convs to
+its explicit scan (``sparse_conv.py:984-994``) only because of the TPU's
+gather windows; a Hopper kernel gathers rows by index and needs no such
+exception.
 """
 
 from __future__ import annotations
@@ -41,6 +50,12 @@ class BatchedPairTable(NamedTuple):
     self_map: bool = False
 
     @property
+    def symmetric_self_map(self) -> bool:
+        """A self-map over symmetric offsets: ``rev == table.flip(1)``, so
+        the fused backward K4 reads ``table`` alone."""
+        return self.self_map and implicit_gemm.offsets_symmetric(self.offsets)
+
+    @property
     def identity_index(self) -> Optional[int]:
         """Offset slot whose table row is iota; only guaranteed for self-maps."""
         return identity_offset_index(self.offsets) if self.self_map else None
@@ -55,11 +70,6 @@ class BatchedPairTable(NamedTuple):
         if self.rev is None:
             raise ValueError("call with_reverse(num_in) first")
         return BatchedPairTable(self.rev, self.table, -self.offsets, self.self_map)
-
-
-def _offsets_symmetric(offsets: np.ndarray) -> bool:
-    """offsets[K-1-k] == -offsets[k] for all k (centred odd kernels)."""
-    return bool(np.array_equal(offsets[::-1], -offsets))
 
 
 def build_batched_pair_table(
@@ -80,7 +90,7 @@ def build_batched_pair_table(
         in_coords, in_num_valid, out_coords, out_num_valid, offsets,
         stride=stride, assume_sorted=assume_sorted,
     )
-    if self_map and _offsets_symmetric(offsets):
+    if self_map and implicit_gemm.offsets_symmetric(offsets):
         return BatchedPairTable(table, table.flip(1), offsets, self_map=True)
     return BatchedPairTable(table, None, offsets, self_map).with_reverse(in_coords.shape[1])
 
@@ -124,6 +134,65 @@ def generate_output_coords_and_kernel_map(
     return oc, torch.clamp(num_unique, max=cap), BatchedPairTable(tab, rev, offsets), out_ts
 
 
+class ConvGemm(torch.autograd.Function):
+    """The table conv GEMM with its backward kernels (counterpart of the
+    ``conv_gemm`` custom_vjp, JAX ``sparse_conv.py:389-472``).
+
+    Forward: K2. Backward: K4 when ``offsets`` is given (a symmetric
+    self-map, whose reverse is ``table.flip(1)``); otherwise K2 as dgrad
+    through ``rev`` and K3. dw comes back in fp32 (``accum_dtype``) and is
+    cast to the weight's dtype, dx to the features' dtype. On CPU tensors
+    every kernel wrapper runs its plain version, through the same routing.
+    """
+
+    @staticmethod
+    def forward(ctx, features, weight, table, rev, offsets, accum_dtype):
+        ctx.save_for_backward(features, weight, table, rev)
+        ctx.offsets = offsets
+        ctx.accum_dtype = accum_dtype
+        return implicit_gemm.implicit_gemm_fwd(features, weight, table, accum_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        features, weight, table, rev = ctx.saved_tensors
+        acc = ctx.accum_dtype
+        g = g.contiguous()
+        need_dx, need_dw = ctx.needs_input_grad[:2]
+        dx = dw = None
+        if ctx.offsets is not None:
+            dx, dw = implicit_gemm.implicit_gemm_bwd_fused(
+                features, g, weight, table, ctx.offsets, acc
+            )
+        else:
+            if need_dx:
+                dx = implicit_gemm.implicit_gemm_dgrad(g, weight, rev.contiguous(), acc)
+            if need_dw:
+                dw = implicit_gemm.implicit_gemm_wgrad(features, g, table, acc)
+        dx = dx.to(features.dtype) if need_dx else None
+        dw = dw.to(weight.dtype) if need_dw else None
+        return dx, dw, None, None, None, None
+
+
+def conv_gemm(
+    features: torch.Tensor,  # [B, N_in, C_in], contiguous
+    weight: torch.Tensor,  # [K, C_in, C_out], contiguous
+    table: BatchedPairTable,
+    accum_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """[B, N_out, C_out] in features' dtype, differentiable in features and
+    weight through :class:`ConvGemm`; the map picks the backward route.
+    With no gradient to record (inference mode, ``no_grad``, or neither
+    input requiring one) K2 runs without the Function's overhead."""
+    tab = table.table.contiguous()
+    if not (torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad)):
+        return implicit_gemm.implicit_gemm_fwd(features, weight, tab, accum_dtype)
+    if table.symmetric_self_map:
+        return ConvGemm.apply(features, weight, tab, None, table.offsets, accum_dtype)
+    if table.rev is None:
+        raise ValueError("the backward of a map that is not a symmetric self-map needs rev")
+    return ConvGemm.apply(features, weight, tab, table.rev, None, accum_dtype)
+
+
 def spatially_sparse_conv(
     voxels: Voxels,
     weight: torch.Tensor,  # [K, C_in, C_out]
@@ -135,7 +204,8 @@ def spatially_sparse_conv(
     pair_table: Optional[BatchedPairTable] = None,
     out_capacity: Optional[int] = None,
 ) -> Tuple[Voxels, Optional[BatchedPairTable]]:
-    """Sparse convolution over :class:`Voxels`, forward only.
+    """Sparse convolution over :class:`Voxels`, differentiable in the
+    features, ``weight`` and ``bias``.
 
     Returns (output voxels, kernel map or None for a 1x1 conv). The map can
     be fed back as ``pair_table`` together with ``out_coords`` to reuse it
@@ -179,9 +249,7 @@ def spatially_sparse_conv(
     else:
         out_sorted = voxels.lex_sorted
 
-    out_feats = implicit_gemm.implicit_gemm_fwd(
-        features.contiguous(), weight.contiguous(), table.table.contiguous(), acc
-    )
+    out_feats = conv_gemm(features.contiguous(), weight.contiguous(), table, acc)
     if bias is not None:
         out_feats = out_feats + bias
     row_valid = torch.arange(oc.shape[1], device=oc.device)[None, :] < onv[:, None]
