@@ -1,8 +1,8 @@
-"""GPU smoke run of the PyTorch port: MinkUNet18 inference and training
-on an H100.
+"""GPU smoke run of the PyTorch port on an H100: MinkUNet18 inference and
+training, and the depthwise / grouped conv path (a SparseConvNeXtBlock).
 
     python3 chip_smoke.py                  # the smoke run below
-    python3 chip_smoke.py --profile DIR    # profile one bench-scale train step
+    python3 chip_smoke.py --profile DIR    # profile a train step and a ConvNeXt fwd+bwd
 
 Phases (any failure exits non-zero):
   1. device: needs CUDA and an sm_90 card; prints the card's name and
@@ -28,7 +28,25 @@ Phases (any failure exits non-zero):
      finite grad on every parameter, a falling loss, and step 1's loss,
      gradients and parameters against the plain path; a small fp32 step
      checks the kernels tightly. Logs step ms, points/s and peak memory.
-Prints one JSON line of per-kernel results, then the ok line last.
+  8. K5: K1's kernel on offsets that form no grid (the 7-point cross), the
+     contract of the JAX package's plain probe: equal tables.
+  9. depthwise kernels: K6 forward on the bench pair's 7^3 map at C 96
+     (bf16, fp32) and on the L0 3^3 map at C 96 and 384; K6 as dgrad and K7
+     on the L0 -> L1 2^3 parity map and its reverse; K8 on the 7^3 and 3^3
+     self-maps. Each against its plain version, timed.
+ 10. convnext: SparseConvNeXtBlock(96, kernel 7) on the bench scene pair
+     (bf16 features, fp32 parameters, seeded weights): fwd+bwd of
+     sum(out^2) with 1 K1, 1 K6 and 1 K8 launch, an inference forward with
+     1 K1 and 1 K6, finite outputs and gradients, agreement with the plain
+     path; a small fp32 block checks the kernels tightly. Logs fwd ms,
+     fwd+bwd ms, voxels/s and peak memory.
+ 11. strided depthwise and grouped: a 2^3 stride-2 SparseDepthwiseConv3d
+     fwd+bwd (1 K6, 1 K6-dgrad, 1 K7) and a 3^3 groups=2 SparseConv3d
+     fwd+bwd (1 K1, 1 K2, 1 K4), each against the plain route.
+Prints one JSON line of per-kernel results (time, plain time, bound from
+the bytes and operations of this run's inputs, the time of a one-call
+PyTorch equivalent where one exists, launches on the main paths), then the
+ok line last.
 """
 
 from __future__ import annotations
@@ -39,7 +57,7 @@ import json
 import subprocess
 import sys
 import time
-from contextlib import contextmanager, nullcontext
+from contextlib import ExitStack, contextmanager, nullcontext
 from unittest import mock
 
 import numpy as np
@@ -77,6 +95,20 @@ TRAIN_TOL = {
     torch.float32: dict(loss=2e-7, grads=4e-4),
     torch.bfloat16: dict(loss=1.5e-4, grads=0.3),
 }
+# The depthwise path (SparseConvNeXtBlock and the strided depthwise conv):
+# kernel path against plain path, relative Frobenius error of outputs and
+# gradients. fp32: the same sums in another order. bf16: the depthwise
+# output and dx are rounded to bf16 once, so a one-ulp flip (2^-8) where
+# the orders differ reaches the fp32 block output through LayerNorm.
+DEPTH_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+CONVNEXT_C = 96
+CONVNEXT_K = 7
+CONVNEXT_REPEATS = 3
+VOLT_S_C = 384
+# Bounds (H100 SXM datasheet figures): HBM rate, and
+# dense peaks by the inputs' type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def log(msg: str) -> None:
@@ -102,53 +134,67 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def make_batch(seed: int, n_cap: int, device):
-    """The bench's input: B surface scenes, 3 random feature channels."""
+def bound(nbytes: float, flops: float = 0.0, dtype=torch.float32):
+    """(least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the HBM rate and the operations over the peak rate
+    for ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def make_batch(seed: int, n_cap: int, device, channels: int = 3, scale: float = 1.0):
+    """The bench's input: B surface scenes, ``channels`` random feature
+    channels (times ``scale``)."""
     from warpconvnet_tpu_torch.geometry.voxels import Voxels
     from warpconvnet_tpu_torch.ops.keys import PAD_COORD
     from warpconvnet_tpu_torch.utils.scenes import make_surface_scene
 
     rng = np.random.default_rng(seed)
     coords = np.full((B, n_cap, 3), PAD_COORD, np.int32)
-    feats = np.zeros((B, n_cap, 3), np.float32)
+    feats = np.zeros((B, n_cap, channels), np.float32)
     nv = np.zeros((B,), np.int32)
     for i in range(B):
         c = make_surface_scene(rng, n_cap)
         nv[i] = len(c)
         coords[i, : len(c)] = c
-        feats[i, : len(c)] = rng.standard_normal((len(c), 3)).astype(np.float32)
+        feats[i, : len(c)] = rng.standard_normal((len(c), channels)) * scale
     return Voxels.create(coords, feats, nv, device=device)
 
 
 @functools.cache
 def wrappers():
-    """Every kernel wrapper on the path, keyed as in ``PER_STEP``; taken
-    once, so that counts can be read while ``plain_kernels`` patches them."""
+    """Every kernel wrapper, keyed as in ``PER_STEP`` (the depthwise ones
+    by ``d``-keys); taken once, so that counts can be read while
+    ``plain_kernels`` patches them."""
+    from warpconvnet_tpu_torch.kernels import depthwise_fma as dw
     from warpconvnet_tpu_torch.kernels import implicit_gemm as ig, sorted_search
 
     return dict(k1=sorted_search.kernel_map_probe, fwd=ig.implicit_gemm_fwd,
                 dgrad=ig.implicit_gemm_dgrad, wgrad=ig.implicit_gemm_wgrad,
-                fused=ig.implicit_gemm_bwd_fused)
+                fused=ig.implicit_gemm_bwd_fused, dfwd=dw.depthwise_fma_fwd,
+                ddgrad=dw.depthwise_fma_dgrad, dwgrad=dw.depthwise_fma_wgrad,
+                dfused=dw.depthwise_fma_bwd_fused)
 
 
 @contextmanager
 def plain_kernels():
-    """Route the conv path through the kernels' plain versions, also on
+    """Route the conv paths through the kernels' plain versions, also on
     CUDA tensors: the reference for the kernel path on the same card."""
+    from warpconvnet_tpu_torch.kernels import depthwise_fma as dw
     from warpconvnet_tpu_torch.kernels import implicit_gemm as ig, sorted_search
 
-    wrappers()
-    with mock.patch.object(
-        sorted_search, "kernel_map_probe", sorted_search.kernel_map_probe_plain
-    ), mock.patch.object(
-        ig, "implicit_gemm_fwd", ig.implicit_gemm_fwd_plain
-    ), mock.patch.object(
-        ig, "implicit_gemm_dgrad", ig.implicit_gemm_dgrad_plain
-    ), mock.patch.object(
-        ig, "implicit_gemm_wgrad", ig.implicit_gemm_wgrad_plain
-    ), mock.patch.object(
-        ig, "implicit_gemm_bwd_fused", ig.implicit_gemm_bwd_fused_plain
-    ):
+    modules = {"k1": sorted_search, "fwd": ig, "dgrad": ig, "wgrad": ig, "fused": ig,
+               "dfwd": dw, "ddgrad": dw, "dwgrad": dw, "dfused": dw}
+    with ExitStack() as stack:
+        for key, fn in wrappers().items():
+            stack.enter_context(mock.patch.object(
+                modules[key], fn.__name__, getattr(modules[key], fn.__name__ + "_plain")
+            ))
         yield
 
 
@@ -161,8 +207,8 @@ def counts():
     return wrappers()["k1"].launches, wrappers()["fwd"].launches
 
 
-def all_counts():
-    return {key: fn.launches for key, fn in wrappers().items()}
+def all_counts(keys=tuple(PER_STEP)):
+    return {key: wrappers()[key].launches for key in keys}
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -186,14 +232,61 @@ def phase_k1(vox):
     hits = int((got >= 0).sum())
     ms = cuda_ms(lambda: sorted_search.kernel_map_probe(*args))
     plain_ms = cuda_ms(lambda: sorted_search.kernel_map_probe_plain(*args))
+    lib_ms = searchsorted_ms(*args)
+    bound_ms, bound_by = bound(nbytes(keys, vox.coords, got))
     log(f"K1 table {tuple(got.shape)}: equal to plain, {hits} pairs; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms")
     return got, dict(
         name="kernel_map_probe", route="cuda",
         source="warpconvnet_tpu_torch/csrc/sorted_search.cu",
         replaces="warpconvnet_tpu/kernels/sorted_search.py:288",
         shape=f"B={B} K=27 M={got.shape[2]} (L0 3^3 submanifold map)",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=lib_ms,
+    )
+
+
+def searchsorted_ms(keys, in_nv, out_coords, out_nv, offsets, stride):
+    """The one PyTorch call that does the probe's search: torch.searchsorted
+    of the formed query keys in the sorted keys."""
+    from warpconvnet_tpu_torch.kernels import sorted_search
+
+    qk, _ = sorted_search._queries(out_coords, out_nv, offsets, stride)
+    qk = qk.reshape(keys.shape[0], -1).contiguous()
+    return cuda_ms(lambda: torch.searchsorted(keys, qk))
+
+
+def phase_k5(vox):
+    """K1's kernel on offsets with no (dx, dy, dz) grid, the contract of the
+    JAX package's plain probe K5 (``sorted_search.py:54``)."""
+    from warpconvnet_tpu_torch.kernels import sorted_search
+    from warpconvnet_tpu_torch.ops.keys import PAD_COORD, coord_keys
+
+    cross = np.array([[1, 0, 0], [0, 0, 0], [0, -1, 0], [0, 0, 1], [-1, 0, 0], [0, 1, 0],
+                      [0, 0, -1]], np.int32)
+    keys = coord_keys(torch.where(vox.valid_mask()[..., None], vox.coords, PAD_COORD))
+    args = (keys, vox.num_valid, vox.coords, vox.num_valid, cross, (1, 1, 1))
+    got = sorted_search.kernel_map_probe(*args)
+    ref = sorted_search.kernel_map_probe_plain(*args)
+    torch.cuda.synchronize()
+    mismatches = int((got != ref).sum())
+    check(mismatches == 0, f"K5 contract: {mismatches} table entries differ from the plain version")
+    ms = cuda_ms(lambda: sorted_search.kernel_map_probe(*args))
+    plain_ms = cuda_ms(lambda: sorted_search.kernel_map_probe_plain(*args))
+    lib_ms = searchsorted_ms(*args)
+    bound_ms, bound_by = bound(nbytes(keys, vox.coords, got))
+    log(f"K5 contract (cross offsets) by K1's kernel: table {tuple(got.shape)} equal to plain, "
+        f"{int((got >= 0).sum())} pairs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"torch.searchsorted {lib_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    return dict(
+        name="kernel_map_probe (K5 contract: 7-point cross offsets)", route="cuda",
+        source="warpconvnet_tpu_torch/csrc/sorted_search.cu",
+        replaces="warpconvnet_tpu/kernels/sorted_search.py:54",
+        shape=f"B={B} K=7 M={got.shape[2]} (L0, no offset grid)",
+        max_abs_err=int((got.long() - ref.long()).abs().max()), ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+        note="not on a main path: no main path probes offsets without a grid",
     )
 
 
@@ -217,15 +310,18 @@ def phase_k2(vox, table):
             ms = cuda_ms(lambda: implicit_gemm.implicit_gemm_fwd(x, w, table))
             plain_ms = cuda_ms(lambda: implicit_gemm.implicit_gemm_fwd_plain(x, w, table))
             flops = 2.0 * int((table >= 0).sum()) * c * c
+            bound_ms, bound_by = bound(nbytes(x, w, table, got), flops, dtype)
             log(f"K2 C {c}->{c} {str(dtype)[6:]}: max_abs_err {err:.3e}; kernel "
-                f"{ms:.4f} ms ({flops / ms / 1e9:.2f} useful TFLOP/s), plain {plain_ms:.4f} ms")
+                f"{ms:.4f} ms ({flops / ms / 1e9:.2f} useful TFLOP/s), plain {plain_ms:.4f} ms, "
+                f"bound {bound_ms:.4f} ms ({bound_by})")
             if c == 256 and dtype == torch.bfloat16:
                 entry = dict(
                     name="implicit_gemm_fwd", route="cuda",
                     source="warpconvnet_tpu_torch/csrc/implicit_gemm.cu",
                     replaces="warpconvnet_tpu/kernels/implicit_gemm.py:546",
                     shape=f"B={B} K=27 N={n} C 256->256 bf16 (L0 map)",
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                    bound_by=bound_by, library_ms=None,
                 )
     return entry
 
@@ -244,8 +340,8 @@ def phase_slice(device):
     from warpconvnet_tpu_torch import constants
     from warpconvnet_tpu_torch.models.mink_unet import MinkUNet18
 
-    model = MinkUNet18(3, NUM_CLASSES, generator=torch.Generator().manual_seed(0))
-    model = model.to(device).eval()
+    model = MinkUNet18(3, NUM_CLASSES, device=device,
+                       generator=torch.Generator().manual_seed(0)).eval()
 
     # Tight check first: a small fp32 forward, kernel path against plain path.
     small = make_batch(100, 4096, device)
@@ -272,7 +368,7 @@ def phase_slice(device):
                   f"{K1_PER_FORWARD} and {K2_PER_FORWARD}")
             logits.append(out)
             kernel_ms.append(ms)
-    launches = counts()
+    launches = all_counts(tuple(wrappers()))
     peak = torch.cuda.max_memory_allocated()
     plain_ms = []
     with torch.inference_mode(), plain_kernels():
@@ -291,9 +387,8 @@ def phase_slice(device):
                 f"{kernel_ms[i]:.3f} ms, plain path {ms:.3f} ms, relative error {err:.3e}")
     constants.set_compute_dtype(None)
     log(f"slice bf16: forward ms kernel {kernel_ms}, plain {plain_ms}; "
-        f"peak memory {peak / 2**30:.3f} GiB; launches K1 {launches[0]}, K2 {launches[1]}")
+        f"peak memory {peak / 2**30:.3f} GiB; launches K1 {launches['k1']}, K2 {launches['fwd']}")
     return launches
-
 
 
 def phase_bwd(vox, table3):
@@ -349,10 +444,14 @@ def phase_bwd(vox, table3):
                 wgrad_plain=cuda_ms(lambda: ig.implicit_gemm_wgrad_plain(x, g, bpt.table)),
             )
             pairs = int((bpt.table >= 0).sum())
+            flops = 2.0 * pairs * c_in * c_out
+            dgrad_bound = bound(nbytes(g, w, rev, dx), flops, dtype)
+            wgrad_bound = bound(nbytes(x, g, bpt.table, dw), flops, dtype)
             log(f"{name} {tag} ({pairs} pairs): K2-dgrad max_abs_err {dx_err:.3e}, "
                 f"{t['dgrad']:.4f} ms, plain {t['dgrad_plain']:.4f} ms; K3 rel err "
                 f"{w_err:.3e} (max_abs {w_abs:.3e}), {t['wgrad']:.4f} ms, "
-                f"plain {t['wgrad_plain']:.4f} ms")
+                f"plain {t['wgrad_plain']:.4f} ms; bounds {dgrad_bound[0]:.4f} / "
+                f"{wgrad_bound[0]:.4f} ms")
             if name.startswith("transposed") and (c_in, c_out) == (96, 96):
                 shape = f"B={B} K=8 N_in={n_in} N_out={n_out} C 96->96 bf16 ({name} 2^3 map)"
                 entries["dgrad"] = dict(
@@ -360,12 +459,14 @@ def phase_bwd(vox, table3):
                     source="warpconvnet_tpu_torch/csrc/implicit_gemm.cu",
                     replaces="warpconvnet_tpu/kernels/implicit_gemm.py:546",
                     shape=shape, max_abs_err=dx_err, ms=t["dgrad"], plain_ms=t["dgrad_plain"],
+                    bound_ms=dgrad_bound[0], bound_by=dgrad_bound[1], library_ms=None,
                 )
                 entries["wgrad"] = dict(
                     name="implicit_gemm_wgrad", route="cuda",
                     source="warpconvnet_tpu_torch/csrc/implicit_gemm_wgrad.cu",
                     replaces="warpconvnet_tpu/kernels/implicit_gemm.py:683",
                     shape=shape, max_abs_err=w_abs, ms=t["wgrad"], plain_ms=t["wgrad_plain"],
+                    bound_ms=wgrad_bound[0], bound_by=wgrad_bound[1], library_ms=None,
                 )
         # The L0 3^3 self-map: K4, its plain version, and the split pair.
         x = rand((B, n0, c_in)).to(dtype)
@@ -382,9 +483,11 @@ def phase_bwd(vox, table3):
         plain_ms = cuda_ms(lambda: ig.implicit_gemm_bwd_fused_plain(x, g, w, table3, offsets3))
         pair_ms = cuda_ms(lambda: (ig.implicit_gemm_dgrad(g, w, rev3),
                                    ig.implicit_gemm_wgrad(x, g, table3)))
+        fused_bound = bound(nbytes(x, g, w, table3, dx, dw),
+                            4.0 * int((table3 >= 0).sum()) * c_in * c_out, dtype)
         log(f"L0 3^3 self-map {tag}: K4 dx max_abs_err {dx_err:.3e}, dw rel err "
             f"{w_err:.3e}; K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"K2-dgrad + K3 pair {pair_ms:.4f} ms")
+            f"K2-dgrad + K3 pair {pair_ms:.4f} ms, bound {fused_bound[0]:.4f} ms")
         if (c_in, c_out) == (128, 96):
             entries["fused"] = dict(
                 name="implicit_gemm_bwd_fused", route="cuda",
@@ -392,8 +495,316 @@ def phase_bwd(vox, table3):
                 replaces="warpconvnet_tpu/kernels/implicit_gemm.py:801",
                 shape=f"B={B} K=27 N={n0} C 128->96 bf16 (L0 3^3 map)",
                 max_abs_err=dx_err, ms=ms, plain_ms=plain_ms, pair_ms=pair_ms,
+                bound_ms=fused_bound[0], bound_by=fused_bound[1], library_ms=None,
             )
     return entries
+
+
+def depth_entry(key, label, shape, err, ms, plain_ms, bound_pair):
+    # wrapper name, line of the TPU kernel in warpconvnet_tpu/kernels/depthwise_fma.py
+    name, line = {
+        "dfwd": ("depthwise_fma_fwd", 152),
+        "ddgrad": ("depthwise_fma_dgrad", 152),
+        "dwgrad": ("depthwise_fma_wgrad", 261),
+        "dfused": ("depthwise_fma_bwd_fused", 367),
+    }[key]
+    return dict(
+        name=name, route="cuda", source="warpconvnet_tpu_torch/csrc/depthwise_fma.cu",
+        replaces=f"warpconvnet_tpu/kernels/depthwise_fma.py:{line}", shape=f"{shape} ({label})",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_pair[0],
+        bound_by=bound_pair[1], library_ms=None,
+    )
+
+
+def phase_depthwise(vox, table3):
+    """K6 (forward, and dgrad through rev), K7 and K8 against their plain
+    versions at the depthwise path's shapes; returns the JSON entries."""
+    from warpconvnet_tpu_torch.kernels import depthwise_fma as dw
+    from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
+        generate_output_coords_and_kernel_map,
+    )
+    from warpconvnet_tpu_torch.ops.kernel_map import kernel_offsets
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    mask = vox.valid_mask()[..., None]
+    n0 = vox.max_num_points
+    c = CONVNEXT_C
+
+    def rand(shape, dtype, scale=1.0):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale).to(dtype)
+
+    _, _, sub7, _ = generate_output_coords_and_kernel_map(vox, CONVNEXT_K)
+    table7 = sub7.table
+    pairs7, pairs3 = int((table7 >= 0).sum()), int((table3 >= 0).sum())
+    log(f"{CONVNEXT_K}^3 self-map: table {tuple(table7.shape)} int32, "
+        f"{table7.numel() * 4 / 1e6:.1f} MB, {pairs7} pairs ({pairs7 / table7.numel():.2%} "
+        f"of the slots valid); L0 3^3: {pairs3} pairs")
+    _, _, down, _ = generate_output_coords_and_kernel_map(
+        vox, 2, stride=2, out_capacity=N_CAP // 2
+    )
+    n1 = down.table.shape[2]
+    entries = {}
+
+    # K6 forward: the 7^3 map (path A), the L0 3^3 map at C 96 and 384.
+    for label, table, pairs, cc, dtypes in (
+        (f"{CONVNEXT_K}^3 self-map", table7, pairs7, c, (torch.bfloat16, torch.float32)),
+        ("L0 3^3 map", table3, pairs3, c, (torch.bfloat16, torch.float32)),
+        ("L0 3^3 map", table3, pairs3, VOLT_S_C, (torch.bfloat16,)),
+    ):
+        k = table.shape[1]
+        for dtype in dtypes:
+            x = rand((B, n0, cc), dtype) * mask
+            w = rand((k, cc), torch.float32, k ** -0.5)
+            got = dw.depthwise_fma_fwd(x, w, table)
+            ref = dw.depthwise_fma_fwd_plain(x, w, table)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), ref.float(), **K2_TOL[dtype])
+            err = float((got.float() - ref.float()).abs().max())
+            ms = cuda_ms(lambda: dw.depthwise_fma_fwd(x, w, table))
+            plain_ms = cuda_ms(lambda: dw.depthwise_fma_fwd_plain(x, w, table), iters=3, warmup=1)
+            bd = bound(nbytes(x, w, table, got), 2.0 * pairs * cc, dtype)
+            tag = f"C {cc} {str(dtype)[6:]}"
+            log(f"K6 {label} {tag}: max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+            if k == CONVNEXT_K ** 3 and dtype == torch.bfloat16:
+                entries["dfwd"] = depth_entry("dfwd", label, f"B={B} K={k} N={n0} {tag}",
+                                              err, ms, plain_ms, bd)
+
+    # K6 as dgrad and K7 on the L0 -> L1 parity map (path B) and its reverse.
+    pairs2 = int((down.table >= 0).sum())
+    rev = down.rev.contiguous()
+    for dtype in (torch.bfloat16, torch.float32):
+        x = rand((B, n0, c), dtype) * mask
+        g = rand((B, n1, c), dtype)
+        w = rand((8, c), torch.float32, 8 ** -0.5)
+        dx = dw.depthwise_fma_dgrad(g, w, rev)
+        dwt = dw.depthwise_fma_wgrad(x, g, down.table)
+        ref_dx = dw.depthwise_fma_dgrad_plain(g, w, rev)
+        ref_dw = dw.depthwise_fma_wgrad_plain(x, g, down.table)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dx.float(), ref_dx.float(), **K2_TOL[dtype])
+        w_err = rel_err(dwt, ref_dw)
+        check(w_err <= DW_TOL, f"K7 dw relative error {w_err:.3e} > {DW_TOL}")
+        dx_err = float((dx.float() - ref_dx.float()).abs().max())
+        w_abs = float((dwt - ref_dw).abs().max())
+        t = dict(
+            dgrad=cuda_ms(lambda: dw.depthwise_fma_dgrad(g, w, rev)),
+            dgrad_plain=cuda_ms(lambda: dw.depthwise_fma_dgrad_plain(g, w, rev)),
+            wgrad=cuda_ms(lambda: dw.depthwise_fma_wgrad(x, g, down.table)),
+            wgrad_plain=cuda_ms(lambda: dw.depthwise_fma_wgrad_plain(x, g, down.table)),
+        )
+        bd_d = bound(nbytes(g, w, rev, dx), 2.0 * pairs2 * c, dtype)
+        bd_w = bound(nbytes(x, g, down.table, dwt), 2.0 * pairs2 * c, dtype)
+        tag = f"C {c} {str(dtype)[6:]}"
+        log(f"L0->L1 2^3 parity map {tag} ({pairs2} pairs): K6-dgrad max_abs_err {dx_err:.3e}, "
+            f"{t['dgrad']:.4f} ms, plain {t['dgrad_plain']:.4f} ms, bound {bd_d[0]:.4f} ms; "
+            f"K7 rel err {w_err:.3e} (max_abs {w_abs:.3e}), {t['wgrad']:.4f} ms, plain "
+            f"{t['wgrad_plain']:.4f} ms, bound {bd_w[0]:.4f} ms")
+        if dtype == torch.bfloat16:
+            shape = f"B={B} K=8 N_in={n0} N_out={n1} {tag}"
+            entries["ddgrad"] = depth_entry("ddgrad", "L0->L1 2^3 parity map, through rev",
+                                            shape, dx_err, t["dgrad"], t["dgrad_plain"], bd_d)
+            entries["dwgrad"] = depth_entry("dwgrad", "L0->L1 2^3 parity map", shape, w_abs,
+                                            t["wgrad"], t["wgrad_plain"], bd_w)
+
+    # K8 on the 7^3 (path A) and 3^3 self-maps, and the split pair it saves.
+    for label, table, rev_t, pairs, dtypes in (
+        (f"{CONVNEXT_K}^3 self-map", table7, sub7.rev, pairs7, (torch.bfloat16,)),
+        ("L0 3^3 self-map", table3, None, pairs3, (torch.bfloat16, torch.float32)),
+    ):
+        k = table.shape[1]
+        offsets = kernel_offsets(round(k ** (1 / 3)))
+        rev_t = table.flip(1).contiguous() if rev_t is None else rev_t
+        for dtype in dtypes:
+            x = rand((B, n0, c), dtype) * mask
+            g = rand((B, n0, c), dtype) * mask
+            w = rand((k, c), torch.float32, k ** -0.5)
+            dx, dwt = dw.depthwise_fma_bwd_fused(x, g, w, table, offsets)
+            ref_dx, ref_dw = dw.depthwise_fma_bwd_fused_plain(x, g, w, table, offsets)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(dx.float(), ref_dx.float(), **K2_TOL[dtype])
+            w_err = rel_err(dwt, ref_dw)
+            check(w_err <= DW_TOL, f"K8 dw relative error {w_err:.3e} > {DW_TOL}")
+            dx_err = float((dx.float() - ref_dx.float()).abs().max())
+            ms = cuda_ms(lambda: dw.depthwise_fma_bwd_fused(x, g, w, table, offsets))
+            plain_ms = cuda_ms(lambda: dw.depthwise_fma_bwd_fused_plain(x, g, w, table, offsets),
+                               iters=3, warmup=1)
+            pair_ms = cuda_ms(lambda: (dw.depthwise_fma_dgrad(g, w, rev_t),
+                                       dw.depthwise_fma_wgrad(x, g, table)))
+            bd = bound(nbytes(x, g, w, table, dx, dwt), 4.0 * pairs * c, dtype)
+            tag = f"C {c} {str(dtype)[6:]}"
+            log(f"K8 {label} {tag}: dx max_abs_err {dx_err:.3e}, dw rel err {w_err:.3e}; "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K6-dgrad + K7 pair "
+                f"{pair_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+            if k == CONVNEXT_K ** 3:
+                entries["dfused"] = depth_entry("dfused", label, f"B={B} K={k} N={n0} {tag}",
+                                                dx_err, ms, plain_ms, bd)
+                entries["dfused"]["pair_ms"] = pair_ms
+    return entries
+
+
+def convnext_run(block, vox, train: bool):
+    """One fwd+bwd of sum(out^2) (``train``) or one inference forward:
+    (output features, input grad or None, ms by CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    block.zero_grad(set_to_none=True)
+    start.record()
+    if train:
+        x = vox.features.detach().requires_grad_(True)
+        out = block(vox.replace(features=x))
+        (out.features.float() ** 2).sum().backward()
+        grad = x.grad
+    else:
+        with torch.inference_mode():
+            out = block(vox)
+        grad = None
+    end.record()
+    torch.cuda.synchronize()
+    return out.features.detach(), grad, start.elapsed_time(end)
+
+
+def check_launches(label, want, before=None):
+    """Every kernel's launches since ``before`` (default: since the last
+    reset) must equal ``want`` (absent keys: 0). Returns the counts."""
+    got = all_counts(tuple(wrappers()))
+    delta = {key: n - (before or {}).get(key, 0) for key, n in got.items()}
+    want = {key: want.get(key, 0) for key in got}
+    check(delta == want, f"{label}: launches {delta}, want {want}")
+    return got
+
+
+def compare_grads(label, got, ref, tol):
+    """Relative Frobenius error of each tensor (outputs and gradients),
+    kernel path against plain path; returns the largest."""
+    worst = 0.0
+    for name in ref:
+        check(bool(torch.isfinite(got[name]).all()), f"{label}: {name} not finite")
+        err = rel_err(got[name], ref[name])
+        check(err <= tol, f"{label}: {name} relative error {err:.3e} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def block_results(block, out, dx):
+    res = {"output": out, "input grad": dx}
+    res.update({n: p.grad.detach().clone() for n, p in block.named_parameters()})
+    return res
+
+
+def phase_convnext(device):
+    """Path A: SparseConvNeXtBlock(96, kernel 7) fwd+bwd and inference on
+    the bench scene pair; returns the launches of each run kind."""
+    from warpconvnet_tpu_torch.nn.modules.blocks import SparseConvNeXtBlock
+
+    def make_block(layer_scale):
+        return SparseConvNeXtBlock(CONVNEXT_C, CONVNEXT_K, layer_scale_init=layer_scale,
+                                   device=device, generator=torch.Generator().manual_seed(0))
+
+    # Tight check first: fp32 at n_cap 4096, a layer scale of 0.5 so the MLP
+    # branch's gradients count.
+    small = make_batch(300, 4096, device, channels=CONVNEXT_C, scale=0.1).lex_sort()
+    block = make_block(0.5)
+    out, dx, _ = convnext_run(block, small, train=True)
+    got = block_results(block, out, dx)
+    with plain_kernels():
+        out, dx, _ = convnext_run(block, small, train=True)
+    worst = compare_grads("convnext fp32 (n_cap 4096)", got, block_results(block, out, dx),
+                          DEPTH_TOL[torch.float32])
+    log(f"convnext fp32 (n_cap 4096): output and gradients vs plain, worst rel err {worst:.3e}")
+
+    block = make_block(1e-6)  # the block's own init, as a user would run it
+    vox = make_batch(301, N_CAP, device, channels=CONVNEXT_C, scale=0.1).lex_sort()
+    vox = vox.replace(features=vox.features.to(torch.bfloat16))
+    voxels = int(vox.num_valid.sum())
+    torch.cuda.reset_peak_memory_stats()
+    train_ms, infer_ms, launches = [], [], {}
+    reset_counts()
+    for i in range(CONVNEXT_REPEATS):
+        before = all_counts(tuple(wrappers()))
+        out, dx, ms = convnext_run(block, vox, train=True)
+        check_launches(f"convnext fwd+bwd {i}", dict(k1=1, dfwd=1, dfused=1), before)
+        train_ms.append(ms)
+    launches[f"SparseConvNeXtBlock fwd+bwd ({CONVNEXT_REPEATS} runs)"] = all_counts(
+        tuple(wrappers()))
+    got = block_results(block, out, dx)
+    check(out.dtype == torch.float32 and tuple(out.shape) == (B, N_CAP, CONVNEXT_C),
+          f"convnext output {out.dtype} {tuple(out.shape)}")
+    check(bool((out[~vox.valid_mask()] == 0).all()), "convnext: pad rows not zero")
+    reset_counts()
+    for i in range(CONVNEXT_REPEATS):
+        before = all_counts(tuple(wrappers()))
+        inf, _, ms = convnext_run(block, vox, train=False)
+        check_launches(f"convnext inference {i}", dict(k1=1, dfwd=1), before)
+        infer_ms.append(ms)
+    launches[f"SparseConvNeXtBlock inference ({CONVNEXT_REPEATS} runs)"] = all_counts(
+        tuple(wrappers()))
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(inf, out), "convnext: inference output differs from the train forward's")
+    reset_counts()
+    with plain_kernels():
+        p_out, p_dx, p_ms = convnext_run(block, vox, train=True)
+    check_launches("convnext plain path", {})
+    worst = compare_grads("convnext bf16 (bench scale)", got, block_results(block, p_out, p_dx),
+                          DEPTH_TOL[torch.bfloat16])
+    steady = train_ms[1:]
+    vps = voxels * len(steady) / (sum(steady) / 1e3)
+    log(f"convnext bf16 C {CONVNEXT_C} k {CONVNEXT_K}^3, {voxels} voxels: fwd+bwd ms "
+        f"{[round(t, 3) for t in train_ms]} (plain path {p_ms:.3f}), inference fwd ms "
+        f"{[round(t, 3) for t in infer_ms]}; {vps:.1f} voxels/s fwd+bwd (runs 2-"
+        f"{CONVNEXT_REPEATS}); peak memory {peak / 2**30:.3f} GiB; worst rel err vs plain "
+        f"{worst:.3e} over the output and {len(got) - 1} gradients")
+    return launches
+
+
+def phase_strided_grouped(device):
+    """Path B: a 2^3 stride-2 depthwise conv fwd+bwd; path C: a 3^3 groups=2
+    conv fwd+bwd; each against the plain route. Returns their launches."""
+    from warpconvnet_tpu_torch import constants
+    from warpconvnet_tpu_torch.nn.modules.sparse_conv import SparseConv3d, SparseDepthwiseConv3d
+
+    vox = make_batch(302, N_CAP, device, channels=CONVNEXT_C, scale=0.1).lex_sort()
+    vox = vox.replace(features=vox.features.to(torch.bfloat16))
+    gen = torch.Generator().manual_seed(0)
+    paths = (
+        ("strided depthwise fwd+bwd",
+         SparseDepthwiseConv3d(CONVNEXT_C, 2, stride=2, device=device, generator=gen),
+         dict(out_capacity=N_CAP // 2), dict(dfwd=1, ddgrad=1, dwgrad=1)),
+        ("grouped fwd+bwd",
+         SparseConv3d(CONVNEXT_C, CONVNEXT_C, 3, groups=2, device=device, generator=gen),
+         {}, dict(k1=1, fwd=1, fused=1)),
+    )
+    launches = {}
+    constants.set_compute_dtype(torch.bfloat16)
+    try:
+        for label, conv, kw, want in paths:
+            results = []
+            for plain in (False, True):
+                x = vox.features.detach().requires_grad_(True)
+                conv.zero_grad(set_to_none=True)
+                reset_counts()
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                with plain_kernels() if plain else nullcontext():
+                    start.record()
+                    out, _ = conv(vox.replace(features=x), **kw)
+                    (out.features.float() ** 2).sum().backward()
+                    end.record()
+                    torch.cuda.synchronize()
+                if plain:
+                    check_launches(f"{label} plain path", {})
+                else:
+                    launches[label] = check_launches(label, want)
+                res = {"output": out.features.detach(), "input grad": x.grad}
+                res.update({n: p.grad.detach().clone() for n, p in conv.named_parameters()})
+                results.append((res, start.elapsed_time(end)))
+            worst = compare_grads(label, results[0][0], results[1][0], DEPTH_TOL[torch.bfloat16])
+            log(f"{label} bf16 C {CONVNEXT_C}: kernel path {results[0][1]:.3f} ms, plain path "
+                f"{results[1][1]:.3f} ms, worst rel err vs plain {worst:.3e}; launches "
+                f"{ {k: v for k, v in launches[label].items() if v} }")
+    finally:
+        constants.set_compute_dtype(None)
+    return launches
 
 
 def train_steps(model, state0, batch, labels, steps, plain):
@@ -474,7 +885,7 @@ def phase_train(device):
     from warpconvnet_tpu_torch import constants
     from warpconvnet_tpu_torch.models.mink_unet import MinkUNet18
 
-    model = MinkUNet18(3, NUM_CLASSES, generator=torch.Generator().manual_seed(0)).to(device)
+    model = MinkUNet18(3, NUM_CLASSES, device=device, generator=torch.Generator().manual_seed(0))
     state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
 
@@ -499,7 +910,7 @@ def phase_train(device):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     losses, ms, launches, got = train_steps(model, state0, batch, labels, TRAIN_STEPS, plain=False)
-    totals = all_counts()
+    totals = all_counts(tuple(wrappers()))
     peak = torch.cuda.max_memory_allocated()
     p_losses, p_ms, p_launches, ref = train_steps(
         model, state0, batch, labels, TRAIN_STEPS, plain=True
@@ -521,34 +932,22 @@ def phase_train(device):
     return totals
 
 
-def profile_step(device, out_dir):
-    """Profile one bench-scale bf16 train step after two warm-up steps:
-    device time by kernel, the device span and its idle share."""
+def profile_run(label, fn, out_dir, trace_name):
+    """Profile one call of ``fn`` (after the caller's warm-up): device time
+    by kernel, the device span and its idle share, read from the exported
+    trace ``out_dir/trace_name``."""
     import os
 
     from torch.profiler import ProfilerActivity, profile
 
-    from warpconvnet_tpu_torch import constants
-    from warpconvnet_tpu_torch.models.mink_unet import MinkUNet18
-    from warpconvnet_tpu_torch.parallel.train import make_segmentation_train_step
-
-    model = MinkUNet18(3, NUM_CLASSES, generator=torch.Generator().manual_seed(0)).to(device)
-    step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
-                                        NUM_CLASSES)
-    constants.set_compute_dtype(torch.bfloat16)
-    batch = make_batch(7, N_CAP, device).lex_sort()
-    labels = torch.from_numpy(np.random.default_rng(8).integers(
-        0, NUM_CLASSES, size=tuple(batch.coords.shape[:2]))).to(device)
-    for _ in range(2):
-        step(batch, labels)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, labels)
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     os.makedirs(out_dir, exist_ok=True)
-    trace = os.path.join(out_dir, "train_step_trace.json")
+    trace = os.path.join(out_dir, trace_name)
     prof.export_chrome_trace(trace)
     # Device work from the exported trace: every kernel, copy and memset.
     with open(trace) as f:
@@ -560,16 +959,48 @@ def profile_step(device, out_dir):
     for e in ops:
         n, t = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, t + e["dur"] / 1e3)
-    print(f"profiled step: host wall {wall:.3f} ms, device busy {busy:.3f} ms over a span of "
-          f"{span:.3f} ms, idle share {1 - busy / span:.1%}, {len(ops)} device ops")
+    print(f"profiled {label}: host wall {wall:.3f} ms, device busy {busy:.3f} ms over a span "
+          f"of {span:.3f} ms, idle share {1 - busy / span:.1%}, {len(ops)} device ops")
     for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:25]:
         print(f"{t:10.3f} ms {t / busy:6.1%} {n:5d}x  {name[:110]}")
+
+
+def profile_paths(device, out_dir):
+    """Profile one bench-scale bf16 MinkUNet18 train step and one
+    SparseConvNeXtBlock fwd+bwd, each after two warm-up runs."""
+    from warpconvnet_tpu_torch import constants
+    from warpconvnet_tpu_torch.models.mink_unet import MinkUNet18
+    from warpconvnet_tpu_torch.nn.modules.blocks import SparseConvNeXtBlock
+    from warpconvnet_tpu_torch.parallel.train import make_segmentation_train_step
+
+    model = MinkUNet18(3, NUM_CLASSES, device=device, generator=torch.Generator().manual_seed(0))
+    step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                        NUM_CLASSES)
+    constants.set_compute_dtype(torch.bfloat16)
+    batch = make_batch(7, N_CAP, device).lex_sort()
+    labels = torch.from_numpy(np.random.default_rng(8).integers(
+        0, NUM_CLASSES, size=tuple(batch.coords.shape[:2]))).to(device)
+    for _ in range(2):
+        step(batch, labels)
+    profile_run("MinkUNet18 train step", lambda: step(batch, labels), out_dir,
+                "train_step_trace.json")
+    constants.set_compute_dtype(None)
+    del model, step, batch
+
+    block = SparseConvNeXtBlock(CONVNEXT_C, CONVNEXT_K, device=device,
+                                generator=torch.Generator().manual_seed(0))
+    vox = make_batch(301, N_CAP, device, channels=CONVNEXT_C, scale=0.1).lex_sort()
+    vox = vox.replace(features=vox.features.to(torch.bfloat16))
+    for _ in range(2):
+        convnext_run(block, vox, train=True)
+    profile_run("SparseConvNeXtBlock fwd+bwd", lambda: convnext_run(block, vox, train=True),
+                out_dir, "convnext_trace.json")
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile one bench-scale train step into DIR instead")
+                        help="profile a bench-scale train step and a ConvNeXt block fwd+bwd into DIR instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -594,21 +1025,30 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s ({_build.library_path()})")
 
     if args.profile:
-        profile_step(device, args.profile)
+        profile_paths(device, args.profile)
         return 0
 
     vox = make_batch(0, N_CAP, device).lex_sort()
     log(f"bench scene pair: {vox.num_valid.tolist()} voxels")
     table, k1 = phase_k1(vox)
+    k5 = phase_k5(vox)
     k2 = phase_k2(vox, table)
     bwd = phase_bwd(vox, table)
+    depth = phase_depthwise(vox, table)
     del table, vox
-    inference = phase_slice(device)
-    k1["inference_launches"], k2["inference_launches"] = inference
-    launches = phase_train(device)
-    entries = dict(k1=k1, fwd=k2, **bwd)
+    # The main paths, each driven with every count set to 0 just before it.
+    paths = {f"MinkUNet18 inference ({REQUESTS} requests)": phase_slice(device),
+             f"MinkUNet18 train ({TRAIN_STEPS} steps)": phase_train(device)}
+    paths.update(phase_convnext(device))
+    paths.update(phase_strided_grouped(device))
+    entries = dict(k1=k1, fwd=k2, **bwd, **depth)
     for key, entry in entries.items():
-        entry["launches"] = launches[key]
+        by_path = {p: c[key] for p, c in paths.items() if c[key]}
+        check(by_path != {}, f"{entry['name']}: launched on no main path")
+        entry["launches"] = sum(by_path.values())
+        entry["launches_by_path"] = by_path
+    k5["launches"] = 0
+    entries["k5"] = k5
     print(json.dumps({"kernels": list(entries.values())}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

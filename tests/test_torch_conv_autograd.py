@@ -34,7 +34,7 @@ def _tiny_maps():
         nv[i] = len(u)
         coords[i, : len(u)] = u
     feats = rng.standard_normal((b, n, 3))
-    vox = Voxels.create(coords, feats, nv).lex_sort()
+    vox = Voxels.create(coords, feats, nv, device="cpu").lex_sort()
     _, _, sub, _ = tconv.generate_output_coords_and_kernel_map(vox, 3)
     _, _, down, _ = tconv.generate_output_coords_and_kernel_map(vox, 2, stride=2)
     return vox, {"fused": sub, "split": down}

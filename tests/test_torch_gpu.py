@@ -1,6 +1,6 @@
-"""CUDA kernels K1, K2 (forward and dgrad), K3 and K4 against their plain
-versions, and the conv backward on CUDA against the CPU plain route, on the
-card.
+"""CUDA kernels K1, K2 (forward and dgrad), K3, K4, K6 (forward and dgrad),
+K7 and K8 against their plain versions, and the conv and ConvNeXt-block
+backward on CUDA against the CPU plain route, on the card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90) and skip elsewhere. They
 import no JAX, so on a machine without it run them with the repository's
@@ -14,8 +14,9 @@ import pytest
 import torch
 
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
-from warpconvnet_tpu_torch.kernels import implicit_gemm, sorted_search
+from warpconvnet_tpu_torch.kernels import depthwise_fma, implicit_gemm, sorted_search
 from warpconvnet_tpu_torch.models.mink_unet import MinkUNetBase
+from warpconvnet_tpu_torch.nn.modules.blocks import SparseConvNeXtBlock
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
     generate_output_coords_and_kernel_map,
     spatially_sparse_conv,
@@ -134,7 +135,7 @@ def test_small_unet_kernel_path_matches_cpu_plain_path(cuda):
     the CPU, same weights and inputs."""
     model = MinkUNetBase(
         3, 5, planes=(8, 16, 16, 16, 16, 16, 8, 8), layers=(1,) * 8, init_dim=8,
-        generator=torch.Generator().manual_seed(0),
+        device="cpu", generator=torch.Generator().manual_seed(0),
     ).eval()
     vox = _voxels(3, "cpu", n=1024, c=3)
     with torch.inference_mode():
@@ -262,7 +263,7 @@ def test_small_unet_train_step_on_cuda_gives_every_parameter_a_grad(cuda):
     labels = torch.randint(0, 5, vox.coords.shape[:2], generator=torch.Generator().manual_seed(0))
     results = []
     for dev in ("cpu", cuda):
-        model = MinkUNetBase(3, 5, generator=torch.Generator().manual_seed(0), **kw).to(dev)
+        model = MinkUNetBase(3, 5, device=dev, generator=torch.Generator().manual_seed(0), **kw)
         step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), 1e-3), 5)
         counts = [f.launches for f in (sorted_search.kernel_map_probe,
                                        implicit_gemm.implicit_gemm_fwd,
@@ -282,5 +283,146 @@ def test_small_unet_train_step_on_cuda_gives_every_parameter_a_grad(cuda):
     assert results[0][2] == [0] * 5  # CPU: plain versions only
     assert results[1][2] == [5, 24, 8, 8, 16]
     assert abs(results[1][0] - results[0][0]) <= 1e-5 * abs(results[0][0])
+    for n, g in results[0][1].items():
+        torch.testing.assert_close(results[1][1][n], g, rtol=1e-3, atol=1e-4 * float(g.abs().max()))
+
+
+def _depth_maps(cuda, c, dtype):
+    """Features and the maps the depthwise path uses: 3^3 and 7^3 (K=343)
+    self-maps, each with the offsets 1 and K-2 (a pair, so the map stays
+    symmetric) emptied to all -1 rows, and the 2^3 parity map."""
+    vox = _voxels(0, cuda, c=c).lex_sort()
+    maps = {}
+    for ks in (3, 7):
+        _, _, sub, _ = generate_output_coords_and_kernel_map(vox, ks)
+        table = sub.table.clone()
+        table[:, [1, ks ** 3 - 2]] = -1
+        maps[f"{ks}^3"] = sub._replace(table=table, rev=table.flip(1).contiguous())
+    _, _, maps["2^3"], _ = generate_output_coords_and_kernel_map(vox, 2, stride=2)
+    return vox.features.to(dtype).contiguous(), maps
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 12, 96, 100])
+def test_k6_forward_and_dgrad_match_plain(cuda, dtype, c):
+    x, maps = _depth_maps(cuda, c, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for name, bpt in maps.items():
+        k, n_out = bpt.table.shape[1], bpt.table.shape[2]
+        w = torch.randn((k, c), generator=gen, device=cuda) / k ** 0.5
+        g = torch.randn((2, n_out, c), generator=gen, device=cuda).to(dtype)
+        fwd, dg = depthwise_fma.depthwise_fma_fwd.launches, depthwise_fma.depthwise_fma_dgrad.launches
+        out = depthwise_fma.depthwise_fma_fwd(x, w, bpt.table)
+        dx = depthwise_fma.depthwise_fma_dgrad(g, w, bpt.rev)
+        ref = depthwise_fma.depthwise_fma_fwd_plain(x, w, bpt.table)
+        ref_dx = depthwise_fma.depthwise_fma_dgrad_plain(g, w, bpt.rev)
+        torch.cuda.synchronize()
+        assert (depthwise_fma.depthwise_fma_fwd.launches,
+                depthwise_fma.depthwise_fma_dgrad.launches) == (fwd + 1, dg + 1), name
+        assert out.dtype == dx.dtype == dtype and out.shape == (2, n_out, c), name
+        torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype], msg=name)
+        torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
+        empty = (bpt.table < 0).all(dim=1)
+        assert bool(empty.any()) and bool((out[empty] == 0).all()), name
+    # A table with no valid entry at all: exact zeros.
+    none = torch.full_like(maps["3^3"].table, -1)
+    assert bool((depthwise_fma.depthwise_fma_fwd(x, torch.ones(27, c, device=cuda), none) == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 12, 96, 100])
+def test_k7_matches_plain(cuda, dtype, c):
+    x, maps = _depth_maps(cuda, c, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for name, bpt in maps.items():
+        n_out = bpt.table.shape[2]
+        g = (torch.randn((2, n_out, c), generator=gen, device=cuda) / n_out ** 0.5).to(dtype)
+        before = depthwise_fma.depthwise_fma_wgrad.launches
+        dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+        ref = depthwise_fma.depthwise_fma_wgrad_plain(x, g, bpt.table)
+        torch.cuda.synchronize()
+        assert depthwise_fma.depthwise_fma_wgrad.launches == before + 1, name
+        assert dw.dtype == torch.float32 and dw.shape == (bpt.table.shape[1], c), name
+        torch.testing.assert_close(dw, ref, **DW_TOL, msg=name)
+        if name != "2^3":
+            assert bool((dw[1] == 0).all()), name  # the emptied offset adds exactly zero
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 12, 96, 100, 384])
+@pytest.mark.parametrize("ks", [3, 7])
+def test_k8_matches_plain_and_the_split_pair(cuda, dtype, c, ks):
+    x, maps = _depth_maps(cuda, c, dtype)
+    bpt = maps[f"{ks}^3"]
+    k = ks ** 3
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    g = (torch.randn(x.shape, generator=gen, device=cuda) / x.shape[1] ** 0.5).to(dtype)
+    w = torch.randn((k, c), generator=gen, device=cuda) / k ** 0.5
+    before = depthwise_fma.depthwise_fma_bwd_fused.launches
+    dx, dw = depthwise_fma.depthwise_fma_bwd_fused(x, g, w, bpt.table, bpt.offsets)
+    ref_dx, ref_dw = depthwise_fma.depthwise_fma_bwd_fused_plain(x, g, w, bpt.table, bpt.offsets)
+    split_dx = depthwise_fma.depthwise_fma_dgrad(g, w, bpt.rev)
+    split_dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+    torch.cuda.synchronize()
+    assert depthwise_fma.depthwise_fma_bwd_fused.launches == before + 1
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    for rdx, rdw in ((ref_dx, ref_dw), (split_dx, split_dw)):
+        torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
+        torch.testing.assert_close(dw, rdw, **DW_TOL)
+    assert bool((dw[[1, k - 2]] == 0).all())  # the emptied offsets add exactly zero
+    pad = (bpt.table < 0).all(dim=1)
+    assert bool(pad.any()) and bool((dx[pad] == 0).all())
+
+
+def test_depthwise_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    x, maps = _depth_maps(cuda, 8, torch.float32)
+    sub, down = maps["3^3"], maps["2^3"]
+    w = torch.zeros(27, 8, device=cuda)
+    with pytest.raises(ValueError):  # the weight stays fp32
+        depthwise_fma.depthwise_fma_fwd(x, w.to(torch.bfloat16), sub.table)
+    with pytest.raises(ValueError):
+        depthwise_fma.depthwise_fma_fwd(x.half(), w, sub.table)
+    with pytest.raises(ValueError):
+        depthwise_fma.depthwise_fma_fwd(x, w, sub.table.long())
+    with pytest.raises(ValueError):
+        depthwise_fma.depthwise_fma_fwd(x, w[:, :4], sub.table)
+    with pytest.raises(ValueError):
+        wide = torch.zeros(2, 4, 1032, device=cuda)
+        depthwise_fma.depthwise_fma_fwd(wide, torch.zeros(27, 1032, device=cuda),
+                                        sub.table[:, :, :4].contiguous())
+    with pytest.raises(ValueError):
+        depthwise_fma.depthwise_fma_wgrad(x, x.transpose(1, 2).contiguous().transpose(1, 2),
+                                          sub.table)
+    with pytest.raises(ValueError):
+        depthwise_fma.depthwise_fma_wgrad(x, x, sub.table, accum_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # not a self-map
+        depthwise_fma.depthwise_fma_bwd_fused(x, x, torch.zeros(8, 8, device=cuda), down.table,
+                                              down.offsets)
+
+
+def test_convnext_block_on_cuda_matches_cpu_plain_route(cuda):
+    """fp32 fwd+bwd of sum(out^2): K1, K6 and K8 on the card against the
+    plain versions on the CPU, every parameter with a finite gradient."""
+    vox = _voxels(6, "cpu", c=16).lex_sort()
+    keys = ("kernel_map_probe", "depthwise_fma_fwd", "depthwise_fma_bwd_fused")
+    fns = (sorted_search.kernel_map_probe, depthwise_fma.depthwise_fma_fwd,
+           depthwise_fma.depthwise_fma_bwd_fused)
+    results = []
+    for dev in ("cpu", cuda):
+        block = SparseConvNeXtBlock(16, 3, layer_scale_init=0.5, device=dev,
+                                    generator=torch.Generator().manual_seed(0))
+        v = vox.to(dev)
+        x = v.features.clone().requires_grad_(True)
+        before = [f.launches for f in fns]
+        out = block(v.replace(features=x))
+        (out.features ** 2).sum().backward()
+        launched = dict(zip(keys, (f.launches - b for f, b in zip(fns, before))))
+        grads = {n: p.grad.cpu() for n, p in block.named_parameters()}
+        assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
+        grads["input"] = x.grad.cpu()
+        results.append((out.features.detach().cpu(), grads, launched))
+    assert results[0][2] == dict.fromkeys(keys, 0)
+    assert results[1][2] == dict.fromkeys(keys, 1)
+    torch.testing.assert_close(results[1][0], results[0][0], rtol=1e-4, atol=1e-4)
     for n, g in results[0][1].items():
         torch.testing.assert_close(results[1][1][n], g, rtol=1e-3, atol=1e-4 * float(g.abs().max()))

@@ -30,7 +30,7 @@ def _voxels(seed, b=2, n=384, grid=12, c=8):
         nv[i] = len(u)
         coords[i, : len(u)] = u
         feats[i, : len(u)] = rng.standard_normal((len(u), c))
-    return Voxels.create(coords, feats, nv).lex_sort()
+    return Voxels.create(coords, feats, nv, device="cpu").lex_sort()
 
 
 def _weight(seed, k, c_in, c_out):

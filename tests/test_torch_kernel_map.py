@@ -41,7 +41,7 @@ def _random_scenes(seed, b=2, n=384, grid=12, lo=0):
 
 
 def _both(coords, feats, nv, sort=True):
-    t, j = Voxels.create(coords, feats, nv), JVoxels.create(coords, feats, nv)
+    t, j = Voxels.create(coords, feats, nv, device="cpu"), JVoxels.create(coords, feats, nv)
     return (t.lex_sort(), j.lex_sort()) if sort else (t, j)
 
 
@@ -76,10 +76,11 @@ def test_kernel_offsets_match():
     assert tkm.identity_offset_index(tkm.kernel_offsets(2)) == 0
 
 
-@pytest.mark.parametrize("ks", [3, 5])
+@pytest.mark.parametrize("ks", [3, 5, 7])
 def test_submanifold_tables_match_jax(ks):
-    """Lex-sorted scenes, held against the JAX bucketed search; the 3^3
-    probe is held against the Pallas probe in the range-edge test."""
+    """Lex-sorted scenes, held against the JAX bucketed search (7^3: the
+    ConvNeXt block's map); the 3^3 probe is held against the Pallas probe
+    in the range-edge test."""
     coords, feats, nv = _pad_batch(_random_scenes(ks), 384)
     tv, jv = _both(coords, feats, nv)
     offs = tkm.kernel_offsets(ks)
@@ -150,6 +151,35 @@ def test_range_edge_tables_match_jax(ks):
     row = {tuple(c): i for i, c in enumerate(coords[0, : nv[0]].tolist())}
     assert got[0, k, row[(5, top, 7)]] == row[(5, top - 1, 7)]
     assert (got[0] >= 0).sum() > 3 * int(nv[0])
+
+
+def test_probe_of_offsets_without_a_grid_matches_the_jax_k5_probe(monkeypatch):
+    """The 7-point cross in an order that is no (dx, dy, dz) grid: JAX
+    finds no offset grouping and probes each offset with its plain Pallas
+    probe (``sorted_probe_batched``, run in interpret mode); the port's
+    probe takes any offsets."""
+    from warpconvnet_tpu.kernels import sorted_search as jss
+
+    offs = np.array([[1, 0, 0], [0, 0, 0], [0, -1, 0], [0, 0, 1], [-1, 0, 0], [0, 1, 0],
+                     [0, 0, -1]], np.int32)
+    assert jkm._yz_group(offs) is None and jkm._z_group(offs) == 1
+    calls = []
+    orig = jss.sorted_probe_batched
+
+    def spy(*a, **k):
+        calls.append(k.get("interpret"))
+        return orig(*a, **k)
+
+    monkeypatch.setattr(jss, "sorted_probe_batched", spy)
+    coords, feats, nv = _pad_batch(_random_scenes(6, lo=-5), 384)
+    tv, jv = _both(coords, feats, nv)
+    args = (tv.coords, tv.num_valid, tv.coords, tv.num_valid)
+    got = tkm.build_pair_tables_batched(*args, offs, assume_sorted=True)
+    ref = _jax_tables(jv.coords, jv.num_valid, jv.coords, jv.num_valid, offs,
+                      assume_sorted=True, queries_sorted=True, use_probe=True)
+    assert calls == [True]
+    _assert_eq(got, ref)
+    assert (got >= 0).sum() > int(nv.sum())
 
 
 def test_strided_probe_at_range_edge_matches_jax():

@@ -73,7 +73,7 @@ def test_searchsorted_and_lookup_match_jax(side):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_lex_sort_matches_jax_exactly(seed):
     coords, feats, nv = _scenes(seed)
-    got = Voxels.create(coords, feats, nv).lex_sort()
+    got = Voxels.create(coords, feats, nv, device="cpu").lex_sort()
     ref = JVoxels.create(coords, feats, nv).lex_sort()
     assert got.lex_sorted and ref.lex_sorted
     np.testing.assert_array_equal(got.coords.numpy(), np.asarray(ref.coords))
@@ -84,7 +84,7 @@ def test_lex_sort_matches_jax_exactly(seed):
 
 def test_voxels_metadata_and_replace():
     coords, feats, nv = _scenes(3, c=2)
-    v = Voxels.create(coords, feats, nv, voxel_size=0.5, tensor_stride=2)
+    v = Voxels.create(coords, feats, nv, voxel_size=0.5, tensor_stride=2, device="cpu")
     assert v.voxel_size == (0.5, 0.5, 0.5) and v.tensor_stride == (2, 2, 2)
     assert (v.batch_size, v.max_num_points, v.num_channels) == (2, 384, 2)
     assert v.coords.dtype == torch.int32 and v.num_valid.dtype == torch.int32

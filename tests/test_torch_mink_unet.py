@@ -76,9 +76,9 @@ def pair():
     jvox = JVoxels.create(coords, feats, nv).lex_sort().replace(lex_sorted=False)
     jmodel = JMinkUNetBase(**CONFIG)
     variables = _seeded_variables(jmodel, jvox)
-    model = MinkUNetBase(**CONFIG)
+    model = MinkUNetBase(**CONFIG, device="cpu")
     model.load_state_dict(variables_to_state_dict(variables, model))
-    return model.eval(), Voxels.create(coords, feats, nv), jmodel, variables, jvox
+    return model.eval(), Voxels.create(coords, feats, nv, device="cpu"), jmodel, variables, jvox
 
 
 def _run_both(pair, dtype):
@@ -137,7 +137,7 @@ def test_convert_raises_on_leftover_keys(pair):
 def test_minkunet18_names_follow_the_jax_scopes():
     """Every MinkUNet18 entry is named by a JAX scope the converter maps
     (round trip: port name -> flax path -> port name)."""
-    model = MinkUNet18(3, 20)
+    model = MinkUNet18(3, 20, device="cpu")
     names = set(model.state_dict())
     assert len(names) == len(set(model.state_dict(keep_vars=True)))
     inverse = {
@@ -164,7 +164,10 @@ def test_minkunet18_names_follow_the_jax_scopes():
 def test_port_imports_no_jax():
     code = (
         "import sys, warpconvnet_tpu_torch.models.mink_unet, warpconvnet_tpu_torch.parallel.train, "
-        "warpconvnet_tpu_torch.models.convert; assert 'jax' not in sys.modules"
+        "warpconvnet_tpu_torch.models.convert, warpconvnet_tpu_torch.nn.modules.blocks, "
+        "warpconvnet_tpu_torch.nn.functional.sparse_conv_depth, "
+        "warpconvnet_tpu_torch.kernels.depthwise_fma; "
+        "assert 'jax' not in sys.modules and 'warpconvnet_tpu' not in sys.modules"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True)

@@ -34,7 +34,7 @@ def _inputs(seed, b=2, n=320, grid=12, c=6):
         u = np.unique(rng.integers(-3, grid, size=(n - 70 * i, 3)), axis=0)
         nv[i] = len(u)
         coords[i, : len(u)] = u
-    t = Voxels.create(coords, feats, nv).replace(lex_sorted=True)
+    t = Voxels.create(coords, feats, nv, device="cpu").replace(lex_sorted=True)
     j = JVoxels.create(coords, feats, nv)  # unflagged: JAX's bucketed search
     return t, j
 
@@ -127,7 +127,7 @@ def test_batch_norm_train_and_eval_match_jax():
         "params": {"scale": jnp.asarray(gamma), "bias": jnp.asarray(beta)},
         "batch_stats": {"mean": jnp.asarray(mean0), "var": jnp.asarray(var0)},
     }
-    bn = BatchNorm(6)
+    bn = BatchNorm(6, device="cpu")
     bn.load_state_dict({"weight": torch.from_numpy(gamma), "bias": torch.from_numpy(beta),
                         "mean": torch.from_numpy(mean0), "var": torch.from_numpy(var0)})
     jtrain, upd = jbn.apply(variables, jv, use_running_average=False, mutable=["batch_stats"])
@@ -150,14 +150,14 @@ def test_sparse_conv3d_init_bounds_match_jax(transposed):
     transposed), as the JAX ``_kaiming_uniform``."""
     from warpconvnet_tpu.nn.modules.sparse_conv import _kaiming_uniform
 
-    conv = SparseConv3d(6, 40, 2, stride=2, transposed=transposed,
+    conv = SparseConv3d(6, 40, 2, stride=2, transposed=transposed, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     jw = _kaiming_uniform(transposed)(jax.random.PRNGKey(0), (8, 6, 40))
     assert tuple(conv.weight.shape) == jw.shape == (8, 6, 40)
     bound = math.sqrt(6.0 / (8 * (40 if transposed else 6)))
     for w in (conv.weight.detach().numpy(), np.asarray(jw)):
         assert np.abs(w).max() <= bound and np.abs(w).max() > 0.9 * bound
-    again = SparseConv3d(6, 40, 2, generator=torch.Generator().manual_seed(0)).weight
+    again = SparseConv3d(6, 40, 2, device="cpu", generator=torch.Generator().manual_seed(0)).weight
     if not transposed:
         assert torch.equal(conv.weight, again)  # seeded: reproducible
 

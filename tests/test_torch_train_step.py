@@ -63,7 +63,7 @@ def _run_jax(jmodel, variables, jvox, labels, steps):
 
 def _run_torch(variables, vox, labels, steps):
     """[(loss, {name: grad}, state dict)] after each step."""
-    model = MinkUNetBase(**CONFIG)
+    model = MinkUNetBase(**CONFIG, device="cpu")
     model.load_state_dict(variables_to_state_dict(variables, model))
     opt = torch.optim.Adam(model.parameters(), lr=LR, betas=(B1, 0.999), eps=1e-8)
     step = make_segmentation_train_step(model, opt, NUM_CLASSES)
@@ -79,7 +79,7 @@ def _run_torch(variables, vox, labels, steps):
 def _both(dtype, steps):
     coords, feats, nv = _scenes(grid=GRID)
     jvox = JVoxels.create(coords, feats, nv).lex_sort().replace(lex_sorted=False)
-    vox = Voxels.create(coords, feats, nv).lex_sort()
+    vox = Voxels.create(coords, feats, nv, device="cpu").lex_sort()
     labels = np.random.default_rng(2).integers(0, NUM_CLASSES, size=nv.shape + (coords.shape[1],))
     labels = labels.astype(np.int32)
     jmodel = JMinkUNetBase(**CONFIG)
@@ -203,7 +203,7 @@ def test_train_mode_batch_norm_grads_and_stats_match_jax():
     (jl, upd), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True)(
         jv.features, jnp.asarray(gamma), jnp.asarray(beta)
     )
-    bn = BatchNorm(c).train()
+    bn = BatchNorm(c, device="cpu").train()
     bn.load_state_dict({"weight": torch.from_numpy(gamma), "bias": torch.from_numpy(beta),
                         "mean": torch.from_numpy(mean0), "var": torch.from_numpy(var0)})
     x = tv.features.clone().requires_grad_(True)
@@ -222,7 +222,7 @@ def test_convert_takes_a_post_step_train_state(fp32_steps):
     """A JAX TrainState maps to the port's parameters and buffers (its
     optimizer state is left out) and loads into the model."""
     _, ref, _ = fp32_steps
-    model = MinkUNetBase(**CONFIG)
+    model = MinkUNetBase(**CONFIG, device="cpu")
     sd = variables_to_state_dict(ref[-1][2], model)
     model.load_state_dict(sd)
     assert set(sd) == set(model.state_dict())

@@ -1,7 +1,11 @@
-"""Global numeric settings (counterpart of ``warpconvnet_tpu/constants.py:122-145``).
+"""Global numeric settings (counterpart of ``warpconvnet_tpu/constants.py:122-145``)
+and the default device.
 
 Only the conv compute dtype and the low-precision-accumulation flag are
 ported; algorithm modes, autotune flags and environment knobs are not.
+Entry points (``Voxels.create`` and every module constructor) place their
+tensors on ``DEFAULT_DEVICE``, the card, unless the caller asks for another
+device; with no card they raise rather than fall back to the CPU.
 """
 
 from __future__ import annotations
@@ -9,6 +13,9 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+
+DEFAULT_DEVICE = "cuda"
+Device = Union[str, torch.device]
 
 _COMPUTE_DTYPE: Optional[torch.dtype] = None
 _LOW_PRECISION_ACCUM = False
@@ -49,3 +56,15 @@ def set_low_precision_accum(value: bool) -> None:
 
 def accum_dtype() -> torch.dtype:
     return torch.bfloat16 if _LOW_PRECISION_ACCUM else torch.float32
+
+
+def resolve_device(device: Device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if it names CUDA and no card
+    is present, so that nothing lands on the CPU unless asked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested but no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev

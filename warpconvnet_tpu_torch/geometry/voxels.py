@@ -8,11 +8,12 @@ rows, valid rows first), features ``[B, N, C]``, num_valid int32 ``[B]``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from warpconvnet_tpu_torch import constants
 from warpconvnet_tpu_torch.geometry.base import GeometryMixin
 from warpconvnet_tpu_torch.ops.keys import PAD_COORD, argsort_keys, coord_keys
 
@@ -54,9 +55,11 @@ class Voxels(GeometryMixin):
         num_valid,
         voxel_size=1.0,
         tensor_stride=1,
-        device: Optional[torch.device] = None,
+        device: constants.Device = constants.DEFAULT_DEVICE,
     ) -> "Voxels":
-        """Build from arrays or tensors; numpy inputs are copied to ``device``."""
+        """Build from arrays or tensors, placed on ``device`` (the card
+        unless the caller asks for another; raises if there is none)."""
+        device = constants.resolve_device(device)
         return cls(
             coords=torch.as_tensor(coords, device=device).to(torch.int32),
             features=torch.as_tensor(features, device=device),

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``. The build
-runs at first use, writes into ``warpconvnet_tpu_torch/_build/`` and is
-reused while the sources, the headers (``csrc/*.cuh``) and the flags hash
-the same. Nothing here runs at import time.
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for ``sm_90a``, all
+started together, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at first use,
+writes into ``warpconvnet_tpu_torch/_build/`` and is reused while the
+sources, the headers (``csrc/*.cuh``) and the flags hash the same. Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -23,8 +24,7 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-lineinfo", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -45,6 +45,12 @@ _SIGNATURES = {
     # int wct_igemm_bwd_fused(x, g, w, table, dx, dw, b, n, k, c_in, c_out,
     #                         dtype, stream)
     "wct_igemm_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_depth_fwd(x, w, table, out, b, n_in, n_out, k, c, dtype, stream)
+    "wct_depth_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_depth_wgrad(x, g, table, dw, b, n_in, n_out, k, c, dtype, stream)
+    "wct_depth_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_depth_bwd_fused(x, g, w, table, dx, dw, b, n, k, c, dtype, stream)
+    "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -73,22 +79,44 @@ def library_path() -> str:
 
 
 def build() -> str:
-    """Compile the sources unless the library for their hash exists.
-    Raises with nvcc's output on failure; writes nvcc's output (register and
+    """Compile the sources unless the library for their hash exists: one
+    ``nvcc -c`` per source, run in parallel, then one link. Raises with
+    nvcc's output on failure; writes nvcc's output (register and
     shared-memory counts from ``-Xptxas -v``) to ``_build/build.log``."""
     so = library_path()
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
+    tag = f"{os.path.basename(so)[:-3]}.{os.getpid()}"
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in _sources():
+        obj = os.path.join(BUILD_DIR, f"{tag}.{os.path.basename(src)}.o")
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )))
+    log, failed = [], []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-1]} (rc {proc.returncode}):\n{out}")
     tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *_sources()]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if not failed:
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout)
+        if proc.returncode != 0:
+            failed.append(f"link (rc {proc.returncode}):\n{proc.stdout}")
     with open(os.path.join(BUILD_DIR, "build.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-        )
+        f.write("\n".join(log))
+    for obj in objs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

@@ -1,9 +1,14 @@
-"""Carry JAX MinkUNet variables over to the port's modules.
+"""Carry JAX variables over to the port's modules: a MinkUNet, a
+``SparseConvNeXtBlock``, and a single sparse conv (dense, grouped or
+depthwise).
 
 The JAX package's flax tree ``{"params": ..., "batch_stats": ...}`` names a
 layer by scope and creation order (``block1_0/SparseConv3d_2/kernel``);
-the port names it by role (``block1.0.proj.weight``). Kernels share the
-``[K, C_in, C_out]`` layout, so values copy as they are.
+the port names it by role (``block1.0.proj.weight``). Sparse-conv kernels
+share their layout ([K, C_in, C_out], [K, G, C_in/G, C_out/G], [K, C]), so
+values copy as they are; a flax ``Dense`` kernel [in, out] becomes a
+``Linear`` weight [out, in]. Leaves are numpy (or anything ``np.array``
+takes).
 """
 
 from __future__ import annotations
@@ -56,6 +61,72 @@ def _port_name(path) -> str:
     raise KeyError(f"unmapped variable {'/'.join(path)}")
 
 
+def _checked(out: Dict[str, torch.Tensor], model: Optional[nn.Module]):
+    """Raise on any of ``model``'s state-dict entries left without a value,
+    on values it has no entry for, and on shape mismatches."""
+    if model is None:
+        return out
+    want = model.state_dict()
+    missing = sorted(set(want) - set(out))
+    extra = sorted(set(out) - set(want))
+    if missing or extra:
+        raise KeyError(f"state dict mismatch: missing {missing}, unexpected {extra}")
+    for name, value in out.items():
+        if tuple(value.shape) != tuple(want[name].shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} != {tuple(want[name].shape)}")
+    return out
+
+
+def _leaf(value, transpose: bool = False) -> torch.Tensor:
+    a = np.array(value, np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a.T) if transpose else a)
+
+
+# JAX SparseConvNeXtBlock path -> (port name, flax Dense kernel to transpose).
+_CONVNEXT = {
+    ("params", "dwconv", "kernel"): ("dwconv.weight", False),
+    ("params", "dwconv", "bias"): ("dwconv.bias", False),
+    ("params", "LayerNorm_0", "scale"): ("norm.weight", False),
+    ("params", "LayerNorm_0", "bias"): ("norm.bias", False),
+    ("params", "Dense_0", "kernel"): ("pwconv1.weight", True),
+    ("params", "Dense_0", "bias"): ("pwconv1.bias", False),
+    ("params", "Dense_1", "kernel"): ("pwconv2.weight", True),
+    ("params", "Dense_1", "bias"): ("pwconv2.bias", False),
+    ("params", "layer_scale"): ("layer_scale", False),
+}
+# A single SparseConv3d or SparseDepthwiseConv3d.
+_CONV = {("params", "kernel"): ("weight", False), ("params", "bias"): ("bias", False)}
+
+
+def _map_tree(variables: Mapping, names) -> Dict[str, torch.Tensor]:
+    out = {}
+    for path, value in _flatten(variables):
+        if path not in names:
+            raise KeyError(f"unmapped variable {'/'.join(path)}")
+        name, transpose = names[path]
+        out[name] = _leaf(value, transpose)
+    return out
+
+
+def convnext_block_variables_to_state_dict(
+    variables: Mapping, model: Optional[nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``SparseConvNeXtBlock`` variable tree (``{"params": ...}``,
+    or its gradients in the same layout) onto the port's
+    :class:`SparseConvNeXtBlock` names. Raises on an unmapped JAX variable;
+    given ``model``, also on missing entries and shape mismatches."""
+    return _checked(_map_tree(variables, _CONVNEXT), model)
+
+
+def conv_variables_to_state_dict(
+    variables: Mapping, model: Optional[nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """Map the variables of one JAX ``SparseConv3d`` (dense or grouped) or
+    ``SparseDepthwiseConv3d`` onto the port module's ``weight``/``bias``.
+    Raises as :func:`convnext_block_variables_to_state_dict` does."""
+    return _checked(_map_tree(variables, _CONV), model)
+
+
 def variables_to_state_dict(
     variables: Mapping, model: Optional[nn.Module] = None
 ) -> Dict[str, torch.Tensor]:
@@ -71,18 +142,4 @@ def variables_to_state_dict(
     mismatches."""
     if hasattr(variables, "params") and hasattr(variables, "batch_stats"):
         variables = {"params": variables.params, "batch_stats": variables.batch_stats}
-    out = {}
-    for path, value in _flatten(variables):
-        out[_port_name(path)] = torch.from_numpy(np.array(value, np.float32))
-    if model is not None:
-        want = model.state_dict()
-        missing = sorted(set(want) - set(out))
-        extra = sorted(set(out) - set(want))
-        if missing or extra:
-            raise KeyError(f"state dict mismatch: missing {missing}, unexpected {extra}")
-        for name, value in out.items():
-            if tuple(value.shape) != tuple(want[name].shape):
-                raise ValueError(
-                    f"{name}: shape {tuple(value.shape)} != {tuple(want[name].shape)}"
-                )
-    return out
+    return _checked({_port_name(path): _leaf(value) for path, value in _flatten(variables)}, model)

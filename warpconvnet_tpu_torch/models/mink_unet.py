@@ -15,6 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from warpconvnet_tpu_torch import constants
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.nn.modules.norms import BatchNorm
 from warpconvnet_tpu_torch.nn.modules.sparse_conv import SparseConv3d
@@ -34,14 +35,15 @@ class ConvBlock(nn.Module):
         kernel_size: int = 3,
         stride: int = 1,
         transposed: bool = False,
+        device: constants.Device = constants.DEFAULT_DEVICE,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.conv = SparseConv3d(
             in_channels, out_channels, kernel_size, stride=stride,
-            transposed=transposed, generator=generator,
+            transposed=transposed, device=device, generator=generator,
         )
-        self.norm = BatchNorm(out_channels)
+        self.norm = BatchNorm(out_channels, device=device)
 
     def forward(self, x: Voxels, out_coords=None, pair_table=None, out_capacity=None):
         x, table = self.conv(
@@ -56,17 +58,19 @@ class BasicBlock(nn.Module):
 
     def __init__(
         self, in_channels: int, out_channels: int,
+        device: constants.Device = constants.DEFAULT_DEVICE,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        self.conv1 = SparseConv3d(in_channels, out_channels, 3, generator=generator)
-        self.norm1 = BatchNorm(out_channels)
-        self.conv2 = SparseConv3d(out_channels, out_channels, 3, generator=generator)
-        self.norm2 = BatchNorm(out_channels)
+        kw = dict(device=device, generator=generator)
+        self.conv1 = SparseConv3d(in_channels, out_channels, 3, **kw)
+        self.norm1 = BatchNorm(out_channels, device=device)
+        self.conv2 = SparseConv3d(out_channels, out_channels, 3, **kw)
+        self.norm2 = BatchNorm(out_channels, device=device)
         self.proj = self.proj_norm = None
         if in_channels != out_channels:
-            self.proj = SparseConv3d(in_channels, out_channels, 1, generator=generator)
-            self.proj_norm = BatchNorm(out_channels)
+            self.proj = SparseConv3d(in_channels, out_channels, 1, **kw)
+            self.proj_norm = BatchNorm(out_channels, device=device)
 
     def forward(self, x: Voxels, pair_table=None):
         residual = x
@@ -87,7 +91,9 @@ class MinkUNetBase(nn.Module):
     """MinkUNet with ``BasicBlock`` stages.
 
     The padded row capacity of stride level i (1, 2, 4, 8, 16) is the
-    input's halved i times, with a floor of 128.
+    input's halved i times, with a floor of 128. Parameters are drawn from
+    ``generator`` and placed on ``device`` (the card unless the caller asks
+    for another).
     """
 
     def __init__(
@@ -97,37 +103,37 @@ class MinkUNetBase(nn.Module):
         planes: Sequence[int] = (32, 64, 128, 256, 256, 128, 96, 96),
         layers: Sequence[int] = (2, 2, 2, 2, 2, 2, 2, 2),
         init_dim: int = 32,
+        device: constants.Device = constants.DEFAULT_DEVICE,
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
         self.planes = tuple(planes)
         self.layers = tuple(layers)
-        p, l, g = self.planes, self.layers, generator
-        self.conv0 = ConvBlock(in_channels, init_dim, 1, generator=g)
+        p, l = self.planes, self.layers
+        kw = dict(device=constants.resolve_device(device), generator=generator)
+        self.conv0 = ConvBlock(in_channels, init_dim, 1, **kw)
         in_chs = (init_dim, p[0], p[1], p[2])
         for s in range(4):
-            self.add_module(
-                f"conv{s + 1}", ConvBlock(in_chs[s], in_chs[s], 2, stride=2, generator=g)
-            )
-            self.add_module(f"block{s + 1}", self._stage(in_chs[s], p[s], l[s], g))
+            self.add_module(f"conv{s + 1}", ConvBlock(in_chs[s], in_chs[s], 2, stride=2, **kw))
+            self.add_module(f"block{s + 1}", self._stage(in_chs[s], p[s], l[s], kw))
         dec_in = p[3]
         skip_chs = (p[2], p[1], p[0], init_dim)
         for s in range(4):
             self.add_module(
                 f"convtr{4 + s}",
-                ConvBlock(dec_in, p[4 + s], 2, stride=2, transposed=True, generator=g),
+                ConvBlock(dec_in, p[4 + s], 2, stride=2, transposed=True, **kw),
             )
             self.add_module(
                 f"block{5 + s}",
-                self._stage(p[4 + s] + skip_chs[s], p[4 + s], l[4 + s], g),
+                self._stage(p[4 + s] + skip_chs[s], p[4 + s], l[4 + s], kw),
             )
             dec_in = p[4 + s]
-        self.final = SparseConv3d(dec_in, out_channels, 1, use_bias=True, generator=g)
+        self.final = SparseConv3d(dec_in, out_channels, 1, use_bias=True, **kw)
 
     @staticmethod
-    def _stage(in_ch, out_ch, n, generator) -> nn.ModuleList:
+    def _stage(in_ch, out_ch, n, kw) -> nn.ModuleList:
         return nn.ModuleList(
-            BasicBlock(in_ch if i == 0 else out_ch, out_ch, generator) for i in range(n)
+            BasicBlock(in_ch if i == 0 else out_ch, out_ch, **kw) for i in range(n)
         )
 
     @staticmethod

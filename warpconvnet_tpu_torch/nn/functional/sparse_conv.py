@@ -14,6 +14,13 @@ weight gradient. The JAX auto dispatch sends strided and transposed convs to
 its explicit scan (``sparse_conv.py:984-994``) only because of the TPU's
 gather windows; a Hopper kernel gathers rows by index and needs no such
 exception.
+
+A grouped conv (``groups > 1``, weight [K, G, C_in/G, C_out/G]) embeds its
+weight block-diagonally into [K, C_in, C_out] and rides the same path, as
+the JAX fast path does (``sparse_conv.py:873-909``); the embedding is
+differentiable, so dw comes back by block extraction. JAX keeps an explicit
+grouped scan for unsorted input and pinned backends; K2 gathers rows by
+index, so the port serves both through the embedding.
 """
 
 from __future__ import annotations
@@ -193,9 +200,18 @@ def conv_gemm(
     return ConvGemm.apply(features, weight, tab, table.rev, None, accum_dtype)
 
 
+def block_diagonal(weight: torch.Tensor) -> torch.Tensor:
+    """Grouped weight [K, G, C_in/G, C_out/G] -> dense [K, C_in, C_out]
+    with group g's block at rows g*C_in/G and columns g*C_out/G, zero
+    elsewhere (exact: a product with a 0/1 mask), differentiable."""
+    k, g, cg, cd = weight.shape
+    eye = torch.eye(g, dtype=weight.dtype, device=weight.device)
+    return (weight[:, :, :, None, :] * eye[None, :, None, :, None]).reshape(k, g * cg, g * cd)
+
+
 def spatially_sparse_conv(
     voxels: Voxels,
-    weight: torch.Tensor,  # [K, C_in, C_out]
+    weight: torch.Tensor,  # [K, C_in, C_out], or [K, G, C_in/G, C_out/G]
     kernel_size: Sequence[int] | int,
     stride: Sequence[int] | int = 1,
     bias: Optional[torch.Tensor] = None,
@@ -203,6 +219,7 @@ def spatially_sparse_conv(
     out_coords: Optional[Voxels] = None,
     pair_table: Optional[BatchedPairTable] = None,
     out_capacity: Optional[int] = None,
+    groups: int = 1,
 ) -> Tuple[Voxels, Optional[BatchedPairTable]]:
     """Sparse convolution over :class:`Voxels`, differentiable in the
     features, ``weight`` and ``bias``.
@@ -211,7 +228,9 @@ def spatially_sparse_conv(
     be fed back as ``pair_table`` together with ``out_coords`` to reuse it
     (a UNet stage's blocks, or a decoder's transposed conv with
     ``map.reversed()``). Features and weight are cast to the global compute
-    dtype (``constants.set_compute_dtype``) when one is set.
+    dtype (``constants.set_compute_dtype``) when one is set. With
+    ``groups > 1`` the weight is grouped and embedded by
+    :func:`block_diagonal`.
     """
     ks = tuple(int(k) for k in _as3(kernel_size))
     st = tuple(int(s) for s in _as3(stride))
@@ -220,6 +239,12 @@ def spatially_sparse_conv(
     if compute_dtype is not None:
         features = features.to(compute_dtype)
         weight = weight.to(compute_dtype)
+    if groups > 1:
+        if weight.ndim != 4 or weight.shape[1] != groups:
+            raise ValueError(
+                f"groups={groups} needs a [K, G, C_in/G, C_out/G] weight, got {tuple(weight.shape)}"
+            )
+        weight = block_diagonal(weight)
     acc = constants.accum_dtype()
 
     if ks == (1, 1, 1) and st == (1, 1, 1) and not transposed:

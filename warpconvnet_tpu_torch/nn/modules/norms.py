@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from warpconvnet_tpu_torch import constants
 from warpconvnet_tpu_torch.nn.functional import normalizations as F
 
 
@@ -18,15 +19,19 @@ class BatchNorm(nn.Module):
     statistics. Parameters and statistics are cast to the feature dtype.
     """
 
-    def __init__(self, dim: int, eps: float = 1e-5, momentum: float = 0.9):
+    def __init__(
+        self, dim: int, eps: float = 1e-5, momentum: float = 0.9,
+        device: constants.Device = constants.DEFAULT_DEVICE,
+    ):
         super().__init__()
+        device = constants.resolve_device(device)
         self.dim = dim
         self.eps = eps
         self.momentum = momentum
-        self.weight = nn.Parameter(torch.ones(dim))
-        self.bias = nn.Parameter(torch.zeros(dim))
-        self.register_buffer("mean", torch.zeros(dim))
-        self.register_buffer("var", torch.ones(dim))
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.register_buffer("mean", torch.zeros(dim, device=device))
+        self.register_buffer("var", torch.ones(dim, device=device))
 
     def forward(self, geometry):
         x = geometry.features
