@@ -1,8 +1,9 @@
 """GPU smoke run of the PyTorch port on an H100: MinkUNet18 inference and
-training, and the depthwise / grouped conv path (a SparseConvNeXtBlock).
+training, the depthwise / grouped conv path (a SparseConvNeXtBlock), and
+Volt-s inference (segment attention).
 
     python3 chip_smoke.py                  # the smoke run below
-    python3 chip_smoke.py --profile DIR    # profile a train step and a ConvNeXt fwd+bwd
+    python3 chip_smoke.py --profile DIR    # profile a train step, a ConvNeXt fwd+bwd, a Volt-s forward
 
 Phases (any failure exits non-zero):
   1. device: needs CUDA and an sm_90 card; prints the card's name and
@@ -43,6 +44,20 @@ Phases (any failure exits non-zero):
  11. strided depthwise and grouped: a 2^3 stride-2 SparseDepthwiseConv3d
      fwd+bwd (1 K6, 1 K6-dgrad, 1 K7) and a 3^3 groups=2 SparseConv3d
      fwd+bwd (1 K1, 1 K2, 1 K4), each against the plain route.
+ 12. K9: segment attention at Volt-s's trunk shape (q/k/v [2, 40960, 6, 64],
+     validity from the bench pair's real token counts), fp32 and bf16, then
+     a grouped layout (segments of 1024 rows), cross attention (Sq 4096,
+     Skv 40960) and D 16; each against its plain version, timed, with the
+     share of kv tiles visited and one scaled_dot_product_attention per
+     scene on its valid rows as the library yardstick.
+ 13. volt: Volt-s (3 -> 20 classes, dim 384, 6 heads, depth 12, bf16 conv
+     compute, fp32 parameters, seeded weights, eval mode, token capacity
+     40960) answers 3 requests, each a fresh bench scene pair whose maps
+     are built inside the forward. Checks finite logits, zero pad rows, no
+     dropped token (against torch.unique of coords // 4), 1 K1, 2 K2 and
+     12 K9 launches per forward, and agreement with the plain path on the
+     card; a small fp32 Volt checks the kernels tightly. Logs forward ms,
+     tokens/s, points/s and peak memory.
 Prints one JSON line of per-kernel results (time, plain time, bound from
 the bytes and operations of this run's inputs, the time of a one-call
 PyTorch equivalent where one exists, launches on the main paths), then the
@@ -105,6 +120,21 @@ CONVNEXT_C = 96
 CONVNEXT_K = 7
 CONVNEXT_REPEATS = 3
 VOLT_S_C = 384
+VOLT_HEADS = 6
+VOLT_DEPTH = 12
+PATCH = 4
+TOKEN_CAPACITY = 40960
+K9_PER_FORWARD = VOLT_DEPTH
+# K9 against its plain version, relative Frobenius error of the output and
+# its largest absolute error over the reference's largest value. fp32: the
+# same sums in another order, online softmax against one pass. bf16: the
+# kernel rounds the unnormalised probabilities to bf16 before P V, the plain
+# version the normalised ones, and both round the output.
+K9_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Volt-s logits, kernel path against plain path (relative Frobenius): bf16
+# stem convs round differently where sums run in another order; the small
+# fp32 Volt runs the same sums in another order.
+VOLT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Bounds (H100 SXM datasheet figures): HBM rate, and
 # dense peaks by the inputs' type.
 HBM_BYTES_PER_S = 3.35e12
@@ -143,6 +173,16 @@ def bound(nbytes: float, flops: float = 0.0, dtype=torch.float32):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def card_state() -> str:
+    """The card's SM clock, power draw and temperature now, as nvidia-smi
+    reports them: beside a timing, they show whether the card ran below its
+    clocks."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -173,12 +213,13 @@ def wrappers():
     ``plain_kernels`` patches them."""
     from warpconvnet_tpu_torch.kernels import depthwise_fma as dw
     from warpconvnet_tpu_torch.kernels import implicit_gemm as ig, sorted_search
+    from warpconvnet_tpu_torch.kernels import segment_attention as k9
 
     return dict(k1=sorted_search.kernel_map_probe, fwd=ig.implicit_gemm_fwd,
                 dgrad=ig.implicit_gemm_dgrad, wgrad=ig.implicit_gemm_wgrad,
                 fused=ig.implicit_gemm_bwd_fused, dfwd=dw.depthwise_fma_fwd,
                 ddgrad=dw.depthwise_fma_dgrad, dwgrad=dw.depthwise_fma_wgrad,
-                dfused=dw.depthwise_fma_bwd_fused)
+                dfused=dw.depthwise_fma_bwd_fused, attn=k9.segment_attention_fwd)
 
 
 @contextmanager
@@ -187,9 +228,10 @@ def plain_kernels():
     CUDA tensors: the reference for the kernel path on the same card."""
     from warpconvnet_tpu_torch.kernels import depthwise_fma as dw
     from warpconvnet_tpu_torch.kernels import implicit_gemm as ig, sorted_search
+    from warpconvnet_tpu_torch.kernels import segment_attention as k9
 
     modules = {"k1": sorted_search, "fwd": ig, "dgrad": ig, "wgrad": ig, "fused": ig,
-               "dfwd": dw, "ddgrad": dw, "dwgrad": dw, "dfused": dw}
+               "dfwd": dw, "ddgrad": dw, "dwgrad": dw, "dfused": dw, "attn": k9}
     with ExitStack() as stack:
         for key, fn in wrappers().items():
             stack.enter_context(mock.patch.object(
@@ -807,6 +849,203 @@ def phase_strided_grouped(device):
     return launches
 
 
+def token_counts(vox):
+    """Tokens of each scene at patch size PATCH: distinct coords // PATCH
+    over its valid rows (torch.unique, independent of the port's maps)."""
+    return [int(torch.unique(torch.div(vox.coords[b, : int(vox.num_valid[b])], PATCH,
+                                       rounding_mode="floor"), dim=0).shape[0])
+            for b in range(vox.batch_size)]
+
+
+def equal_segment_pairs(seg_q, seg_kv):
+    """(query, kv) row pairs with equal segments, summed over scenes: the
+    pairs whose products the function needs, pad sentinel included."""
+    total = 0
+    for b in range(seg_q.shape[0]):
+        uq, cq = torch.unique(seg_q[b], return_counts=True)
+        uk, ck = torch.unique(seg_kv[b], return_counts=True)
+        kv = dict(zip(uk.tolist(), ck.tolist()))
+        total += sum(c * kv.get(u, 0) for u, c in zip(uq.tolist(), cq.tolist()))
+    return total
+
+
+def sdpa_ms(q, k, v, nq, nkv):
+    """One scaled_dot_product_attention per scene on its valid rows (no
+    mask): the library call for global attention over a ragged batch."""
+    from torch.nn import functional as F
+
+    def run():
+        for b in range(q.shape[0]):
+            F.scaled_dot_product_attention(q[b:b + 1, : nq[b]].transpose(1, 2),
+                                           k[b:b + 1, : nkv[b]].transpose(1, 2),
+                                           v[b:b + 1, : nkv[b]].transpose(1, 2))
+    return cuda_ms(run, iters=3, warmup=1)
+
+
+def phase_k9(tokens):
+    """K9 against its plain version at Volt-s's trunk shape (validity from
+    the real token counts ``tokens``), fp32 and bf16, and on a grouped
+    layout, cross attention and D 16. Returns the JSON entry."""
+    from warpconvnet_tpu_torch.kernels import segment_attention as k9
+    from warpconvnet_tpu_torch.nn.functional.flash_attention import (
+        segment_ids_from_groups,
+        segment_ids_from_valid,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s, d = TOKEN_CAPACITY, VOLT_S_C // VOLT_HEADS
+    rows = torch.arange(s, device="cuda")[None, :]
+    valid = rows < torch.as_tensor(tokens, device="cuda")[:, None]
+    cross_q = [min(t, 4096) - 96 * (i + 1) for i, t in enumerate(tokens)]
+    cases = (  # name, heads, D, Sq, seg_q, seg_kv, valid rows (q, kv) for the library
+        ("global", VOLT_HEADS, d, s, segment_ids_from_valid(valid), None, (tokens, tokens)),
+        ("grouped 1024", VOLT_HEADS, d, s, segment_ids_from_groups(rows // 1024, valid), None,
+         None),
+        ("cross Sq 4096", VOLT_HEADS, d, 4096,
+         segment_ids_from_valid(rows[:, :4096] < torch.as_tensor(cross_q, device="cuda")[:, None]),
+         segment_ids_from_valid(valid), (cross_q, tokens)),
+        ("global D 16", 4, 16, s, segment_ids_from_valid(valid), None, (tokens, tokens)),
+    )
+    entry = None
+    for name, h, dd, sq, seg_q, seg_kv, lib_rows in cases:
+        seg_kv = seg_q if seg_kv is None else seg_kv
+        pairs = equal_segment_pairs(seg_q, seg_kv)
+        q32 = torch.randn((B, sq, h, dd), generator=gen, device="cuda") * 2.5
+        k32 = torch.randn((B, s, h, dd), generator=gen, device="cuda")
+        v32 = torch.randn((B, s, h, dd), generator=gen, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            visited, tiles = k9.kv_tiles_visited(seg_q, seg_kv)
+            q, k, v = (t.to(dtype) for t in (q32, k32, v32))
+            got = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+            ref = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == ref.shape, f"K9 {name}: {got.dtype} {got.shape}")
+            err = rel_err(got, ref)
+            max_abs = float((got.float() - ref.float()).abs().max())
+            scale = float(ref.float().abs().max())
+            tol = K9_TOL[dtype]
+            check(bool(torch.isfinite(got).all()), f"K9 {name}: non-finite output")
+            check(err <= tol and max_abs <= tol * scale,
+                  f"K9 {name} {str(dtype)[6:]}: relative error {err:.3e}, max abs {max_abs:.3e} "
+                  f"(largest {scale:.3e}) > {tol}")
+            fast = dtype == torch.bfloat16 or dd == 16 or name != "global"
+            ms = cuda_ms(lambda: k9.segment_attention_fwd(q, k, v, seg_q, seg_kv),
+                         iters=10 if fast else 3, warmup=1)
+            plain_ms = cuda_ms(lambda: k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv),
+                               iters=2, warmup=1)
+            lib_ms = None if lib_rows is None else sdpa_ms(q, k, v, *lib_rows)
+            flops = 4.0 * pairs * dd * h
+            bd = bound(nbytes(q, k, v, seg_q, seg_kv, got), flops, dtype)
+            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            log(f"K9 {name} [B={B}, Sq={sq}, Skv={s}, H={h}, D={dd}] {str(dtype)[6:]}: rel err "
+                f"{err:.3e}, max_abs_err {max_abs:.3e}; kernel {ms:.4f} ms "
+                f"({flops / ms / 1e9:.2f} TFLOP/s on {pairs} equal-segment pairs), plain "
+                f"{plain_ms:.4f} ms, sdpa {lib_txt}, bound {bd[0]:.4f} ms ({bd[1]}); kv tiles "
+                f"visited {visited}/{tiles} ({visited / tiles:.2%}); card {card_state()}")
+            if name == "global":
+                res = dict(max_abs_err=max_abs, rel_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bd[0], bound_by=bd[1], library_ms=lib_ms)
+                if dtype == torch.float32:
+                    entry = dict(
+                        name="segment_attention_fwd", route="cuda",
+                        source="warpconvnet_tpu_torch/csrc/segment_attention.cu",
+                        replaces="warpconvnet_tpu/nn/functional/flash_attention.py:147",
+                        shape=f"B={B} S={s} H={h} D={dd} fp32, validity {tokens} "
+                              "(Volt-s trunk; the main path's dtype)",
+                        **res)
+                else:
+                    entry["bf16"] = res
+                res["kv_tiles_visited"] = visited / tiles
+    return entry
+
+
+def volt_forward(model, vox):
+    """(logits, forward ms by CUDA events, the tokenizer's num_valid):
+    ``sparse_reduce`` is wrapped to read the token counts the model saw."""
+    from warpconvnet_tpu_torch.models import volt as volt_module
+
+    seen = []
+
+    def spy(*args, **kwargs):
+        pooled, table = real(*args, **kwargs)
+        seen.append(pooled.num_valid.tolist())
+        return pooled, table
+
+    real = volt_module.sparse_reduce
+    with mock.patch.object(volt_module, "sparse_reduce", spy):
+        out, ms = forward_ms(model, vox)
+    return out, ms, seen[0]
+
+
+def phase_volt(device):
+    """Volt-s inference: 3 bench-scale requests on the kernel path, one on
+    the plain path, and a small fp32 Volt; returns the main path's launches."""
+    from warpconvnet_tpu_torch import constants
+    from warpconvnet_tpu_torch.models.volt import build_volt
+
+    # Tight check first: a small fp32 Volt (dim 64, 4 heads of D 16).
+    small_model = build_volt("volt-s", 3, NUM_CLASSES, dim=64, num_heads=4, depth=2,
+                             device=device, generator=torch.Generator().manual_seed(1)).eval()
+    small = make_batch(400, 4096, device)
+    with torch.inference_mode():
+        got, _, _ = volt_forward(small_model, small)
+        with plain_kernels():
+            ref, _, _ = volt_forward(small_model, small)
+    err = rel_err(got, ref)
+    check(err <= VOLT_TOL[torch.float32], f"volt fp32: relative error {err:.3e}")
+    log(f"volt fp32 (dim 64, 4 heads, depth 2, n_cap 4096): relative error vs plain {err:.3e}")
+    del small_model
+
+    model = build_volt("volt-s", 3, NUM_CLASSES, token_capacity=TOKEN_CAPACITY, device=device,
+                       generator=torch.Generator().manual_seed(0)).eval()
+    requests = [make_batch(seed, N_CAP, device) for seed in range(11, 11 + REQUESTS)]
+    want = dict(k1=1, fwd=2, attn=K9_PER_FORWARD)
+    constants.set_compute_dtype(torch.bfloat16)
+    try:
+        logits, fwd_ms, toks = [], [], []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with torch.inference_mode():
+            for i, vox in enumerate(requests):
+                before = all_counts(tuple(wrappers()))
+                out, ms, seen = volt_forward(model, vox)
+                check_launches(f"volt request {i}", want, before)
+                logits.append(out)
+                fwd_ms.append(ms)
+                toks.append(seen)
+        launches = all_counts(tuple(wrappers()))
+        peak = torch.cuda.max_memory_allocated()
+        with torch.inference_mode(), plain_kernels():
+            ref, plain_ms, _ = volt_forward(model, requests[0])
+    finally:
+        constants.set_compute_dtype(None)
+    for i, vox in enumerate(requests):
+        mask = vox.valid_mask()
+        got = logits[i]
+        expect = token_counts(vox)
+        check(tuple(got.shape) == (B, N_CAP, NUM_CLASSES), f"volt logits shape {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"volt request {i}: non-finite logits")
+        check(bool((got[~mask] == 0).all()), f"volt request {i}: pad rows not zero")
+        check(max(expect) <= TOKEN_CAPACITY and toks[i] == expect,
+              f"volt request {i}: tokens {toks[i]}, distinct coords // {PATCH} {expect}, "
+              f"capacity {TOKEN_CAPACITY}")
+        log(f"volt request {i}: {vox.num_valid.tolist()} voxels, {toks[i]} tokens (none "
+            f"dropped), forward {fwd_ms[i]:.3f} ms")
+    log(f"volt: card {card_state()}")
+    mask = requests[0].valid_mask()
+    err = rel_err(logits[0][mask], ref[mask])
+    check(err <= VOLT_TOL[torch.bfloat16], f"volt bf16: relative error {err:.3e}")
+    steady = fwd_ms[1:]
+    points = sum(int(v.num_valid.sum()) for v in requests[1:])
+    tokens = sum(sum(t) for t in toks[1:])
+    log(f"volt-s bf16 conv compute, fp32 trunk: forward ms {[round(t, 3) for t in fwd_ms]}, "
+        f"plain path {plain_ms:.3f} ms (request 0), relative error vs plain {err:.3e}; "
+        f"{tokens / (sum(steady) / 1e3):.1f} tokens/s, {points / (sum(steady) / 1e3):.1f} "
+        f"points/s (requests 2-{REQUESTS}); peak memory {peak / 2**30:.3f} GiB; launches "
+        f"{ {k: n for k, n in launches.items() if n} }")
+    return launches
+
+
 def train_steps(model, state0, batch, labels, steps, plain):
     """Run ``steps`` train steps from ``state0`` with a fresh Adam. Returns
     (losses, step ms, launches per step, step 1's (loss, grads, params))."""
@@ -967,7 +1206,8 @@ def profile_run(label, fn, out_dir, trace_name):
 
 def profile_paths(device, out_dir):
     """Profile one bench-scale bf16 MinkUNet18 train step and one
-    SparseConvNeXtBlock fwd+bwd, each after two warm-up runs."""
+    SparseConvNeXtBlock fwd+bwd, each after two warm-up runs, and one
+    Volt-s forward after one."""
     from warpconvnet_tpu_torch import constants
     from warpconvnet_tpu_torch.models.mink_unet import MinkUNet18
     from warpconvnet_tpu_torch.nn.modules.blocks import SparseConvNeXtBlock
@@ -995,12 +1235,25 @@ def profile_paths(device, out_dir):
         convnext_run(block, vox, train=True)
     profile_run("SparseConvNeXtBlock fwd+bwd", lambda: convnext_run(block, vox, train=True),
                 out_dir, "convnext_trace.json")
+    del block, vox
+
+    from warpconvnet_tpu_torch.models.volt import build_volt
+
+    model = build_volt("volt-s", 3, NUM_CLASSES, token_capacity=TOKEN_CAPACITY, device=device,
+                       generator=torch.Generator().manual_seed(0)).eval()
+    vox = make_batch(11, N_CAP, device)
+    constants.set_compute_dtype(torch.bfloat16)
+    with torch.inference_mode():
+        forward_ms(model, vox)
+        profile_run("Volt-s forward", lambda: forward_ms(model, vox), out_dir, "volt_trace.json")
+    constants.set_compute_dtype(None)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile a bench-scale train step and a ConvNeXt block fwd+bwd into DIR instead")
+                        help="profile a bench-scale train step, a ConvNeXt block fwd+bwd and a "
+                             "Volt-s forward into DIR instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -1029,7 +1282,8 @@ def main() -> int:
         return 0
 
     vox = make_batch(0, N_CAP, device).lex_sort()
-    log(f"bench scene pair: {vox.num_valid.tolist()} voxels")
+    tokens = token_counts(vox)
+    log(f"bench scene pair: {vox.num_valid.tolist()} voxels, {tokens} tokens at patch {PATCH}")
     table, k1 = phase_k1(vox)
     k5 = phase_k5(vox)
     k2 = phase_k2(vox, table)
@@ -1041,7 +1295,9 @@ def main() -> int:
              f"MinkUNet18 train ({TRAIN_STEPS} steps)": phase_train(device)}
     paths.update(phase_convnext(device))
     paths.update(phase_strided_grouped(device))
-    entries = dict(k1=k1, fwd=k2, **bwd, **depth)
+    k9 = phase_k9(tokens)
+    paths[f"Volt-s inference ({REQUESTS} requests)"] = phase_volt(device)
+    entries = dict(k1=k1, fwd=k2, **bwd, **depth, attn=k9)
     for key, entry in entries.items():
         by_path = {p: c[key] for p, c in paths.items() if c[key]}
         check(by_path != {}, f"{entry['name']}: launched on no main path")

@@ -1,6 +1,7 @@
 """CUDA kernels K1, K2 (forward and dgrad), K3, K4, K6 (forward and dgrad),
-K7 and K8 against their plain versions, and the conv and ConvNeXt-block
-backward on CUDA against the CPU plain route, on the card.
+K7, K8 and K9 against their plain versions, and the conv and ConvNeXt-block
+backward and a small Volt forward on CUDA against the CPU plain route, on
+the card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90) and skip elsewhere. They
 import no JAX, so on a machine without it run them with the repository's
@@ -15,7 +16,9 @@ import torch
 
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.kernels import depthwise_fma, implicit_gemm, sorted_search
+from warpconvnet_tpu_torch.kernels import segment_attention as k9
 from warpconvnet_tpu_torch.models.mink_unet import MinkUNetBase
+from warpconvnet_tpu_torch.models.volt import build_volt
 from warpconvnet_tpu_torch.nn.modules.blocks import SparseConvNeXtBlock
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
     generate_output_coords_and_kernel_map,
@@ -426,3 +429,114 @@ def test_convnext_block_on_cuda_matches_cpu_plain_route(cuda):
     torch.testing.assert_close(results[1][0], results[0][0], rtol=1e-4, atol=1e-4)
     for n, g in results[0][1].items():
         torch.testing.assert_close(results[1][1][n], g, rtol=1e-3, atol=1e-4 * float(g.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_on_three_input_channels_matches_plain(cuda, dtype):
+    """Volt's stem1: a 3^3 conv from 3 channels to 64, the ragged C_in edge
+    masked inside one 16- or 32-channel slice."""
+    vox = _voxels(8, cuda, c=3).lex_sort()
+    _, _, sub, _ = generate_output_coords_and_kernel_map(vox, 3)
+    w = (torch.randn((27, 3, 64), generator=torch.Generator(device=cuda).manual_seed(5),
+                     device=cuda) / 9).to(dtype)
+    x = vox.features.to(dtype).contiguous()
+    got = implicit_gemm.implicit_gemm_fwd(x, w, sub.table)
+    ref = implicit_gemm.implicit_gemm_fwd_plain(x, w, sub.table)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+# K9 against its plain version: fp32 sums in another order (online softmax);
+# bf16 probabilities rounded before (kernel) or after (plain) normalising.
+K9_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+def _k9_case(cuda, layout, dtype, d, h=2):
+    """(q, k, v, seg_q, seg_kv): S = 200 (not a multiple of 64) with the
+    last tiles all pad, or cross attention Sq 70 / Skv 300 with separate
+    ids and some query rows matching no kv row."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    sq, skv = (70, 300) if layout == "cross" else (200, 200)
+    q = torch.randn((2, sq, h, d), generator=gen, device=cuda) * 2
+    k = torch.randn((2, skv, h, d), generator=gen, device=cuda)
+    v = torch.randn((2, skv, h, d), generator=gen, device=cuda)
+    if layout == "global":
+        valid = torch.arange(sq, device=cuda)[None] < torch.tensor([[190], [60]], device=cuda)
+        seg_q = seg_kv = torch.where(valid, 0, 2_000_000_000).to(torch.int32)
+    elif layout == "grouped":
+        seg_q = seg_kv = (torch.arange(sq, device=cuda) // 24).to(torch.int32).repeat(2, 1)
+    else:
+        seg_q = torch.randint(0, 4, (2, sq), generator=gen, device=cuda, dtype=torch.int32)
+        seg_q[:, ::9] = 7  # no kv row has segment 7: these rows give 0
+        seg_kv = torch.randint(0, 4, (2, skv), generator=gen, device=cuda, dtype=torch.int32)
+    return q.to(dtype), k.to(dtype), v.to(dtype), seg_q, seg_kv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "cross"])
+def test_k9_matches_plain(cuda, layout, dtype, d):
+    q, k, v, seg_q, seg_kv = _k9_case(cuda, layout, dtype, d)
+    before = k9.segment_attention_fwd.launches
+    got = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+    ref = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    assert k9.segment_attention_fwd.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
+    torch.testing.assert_close(got.float(), ref.float(), **K9_TOL[dtype])
+    if layout == "cross":
+        assert bool((got[:, ::9] == 0).all())
+
+
+def test_k9_reads_strided_qkv_and_takes_a_scale(cuda):
+    """Q, K and V as slices of one [B, S, 3, H, D] projection (a row stride
+    of 3 H D) give what contiguous copies give; an explicit scale too."""
+    qkv = torch.randn((2, 150, 3, 4, 32), generator=torch.Generator(device=cuda).manual_seed(0),
+                      device=cuda)
+    seg = (torch.arange(150, device=cuda) < 120).to(torch.int32).expand(2, 150).contiguous()
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    got = k9.segment_attention_fwd(q, k, v, seg, seg, scale=0.1)
+    want = k9.segment_attention_fwd(q.contiguous(), k.contiguous(), v.contiguous(), seg, seg,
+                                    scale=0.1)
+    ref = k9.segment_attention_fwd_plain(q, k, v, seg, seg, scale=0.1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, ref, **K9_TOL[torch.float32])
+
+
+def test_k9_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q, k, v, seg_q, seg_kv = _k9_case(cuda, "global", torch.float32, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        k9.segment_attention_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                 v[..., :48].contiguous(), seg_q, seg_kv)
+    with pytest.raises(ValueError, match="share"):
+        k9.segment_attention_fwd(q.half(), k.half(), v.half(), seg_q, seg_kv)
+    with pytest.raises(ValueError, match="share"):
+        k9.segment_attention_fwd(q, k.to(torch.bfloat16), v, seg_q, seg_kv)
+    with pytest.raises(ValueError, match="int32"):
+        k9.segment_attention_fwd(q, k, v, seg_q.long(), seg_kv)
+    with pytest.raises(ValueError, match="contiguous"):  # heads innermost, not D
+        k9.segment_attention_fwd(q.transpose(2, 3).contiguous().transpose(2, 3), k, v, seg_q,
+                                 seg_kv)
+    with pytest.raises(ValueError, match="aligned"):  # rows 4 bytes off a 16-byte boundary
+        unaligned = torch.zeros(q.numel() + 1, device=cuda)[1:].reshape(q.shape)
+        k9.segment_attention_fwd(unaligned, k, v, seg_q, seg_kv)
+    with pytest.raises(ValueError, match="disagree"):
+        k9.segment_attention_fwd(q, k[:1], v[:1], seg_q, seg_kv[:1])
+
+
+def test_small_volt_on_cuda_matches_cpu_plain_route(cuda):
+    """fp32 forward of a small Volt (dim 32, 2 heads, depth 2): K1, K2 and
+    K9 on the card against the plain versions on the CPU."""
+    model = build_volt("volt-s", 3, 5, dim=32, num_heads=2, depth=2, stem_dim=8, device="cpu",
+                       generator=torch.Generator().manual_seed(0)).eval()
+    vox = _voxels(9, "cpu", n=1024, c=3)
+    fns = (sorted_search.kernel_map_probe, implicit_gemm.implicit_gemm_fwd,
+           k9.segment_attention_fwd)
+    with torch.inference_mode():
+        ref = model(vox.lex_sort()).features
+        before = [f.launches for f in fns]
+        got = model.to(cuda)(vox.to(cuda).lex_sort()).features.cpu()
+    assert [f.launches - b for f, b in zip(fns, before)] == [1, 2, 2]
+    assert bool((got[~vox.valid_mask()] == 0).all())
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)

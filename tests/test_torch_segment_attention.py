@@ -1,0 +1,132 @@
+"""Port parity for segment attention: K9's plain version
+(``segment_attention_fwd_plain``) and the port's ``segment_attention``
+against JAX ``segment_attention(..., impl="xla")``, the path JAX's own tests
+run on the CPU. Layouts: global attention with pads, grouped (patch)
+segments, cross attention with separate ids, rows that match no kv row.
+Tolerances: fp32 1e-5 (rtol and atol), bf16 2e-2."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from warpconvnet_tpu.nn.functional import flash_attention as jfa
+from warpconvnet_tpu_torch.kernels import segment_attention as k9
+from warpconvnet_tpu_torch.nn.functional import flash_attention as tfa
+
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+_JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
+
+
+def _qkv(seed, b, sq, skv, h, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k = rng.standard_normal((b, skv, h, d)).astype(np.float32)
+    v = rng.standard_normal((b, skv, h, d)).astype(np.float32)
+    return q, k, v
+
+
+def _valid_segments(n, num_valid):
+    valid = np.arange(n)[None, :] < np.asarray(num_valid)[:, None]
+    return np.where(valid, 0, jfa._PAD_SEGMENT).astype(np.int32)
+
+
+def _layouts(sq, skv, seed):
+    """name -> (seg_q, seg_kv) for B = 2."""
+    rng = np.random.default_rng(seed)
+    grouped = np.broadcast_to(np.arange(sq) // 16, (2, sq)).astype(np.int32)
+    grouped = np.where(np.arange(sq)[None, :] < np.array([[sq - 5], [sq - 40]]), grouped,
+                       jfa._PAD_SEGMENT).astype(np.int32)
+    unmatched = rng.integers(0, 4, size=(2, sq)).astype(np.int32)
+    unmatched[:, ::7] = 9  # kv ids are 0..3: these query rows match nothing
+    return {
+        "global_with_pads": (_valid_segments(sq, [sq - 9, sq // 2]),
+                             _valid_segments(skv, [skv - 9, skv // 2])),
+        "grouped": (grouped, grouped) if sq == skv else None,
+        "cross": (rng.integers(0, 3, size=(2, sq)).astype(np.int32),
+                  rng.integers(0, 3, size=(2, skv)).astype(np.int32)),
+        "unmatched_rows": (unmatched, rng.integers(0, 4, size=(2, skv)).astype(np.int32)),
+    }
+
+
+def _jax_ref(q, k, v, sq_ids, skv_ids, dtype):
+    jd = _JDTYPE[dtype]
+    out = jfa.segment_attention(jnp.asarray(q, jd), jnp.asarray(k, jd), jnp.asarray(v, jd),
+                                jnp.asarray(sq_ids), jnp.asarray(skv_ids), impl="xla")
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _t(x, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("layout", ["global_with_pads", "grouped", "cross", "unmatched_rows"])
+def test_plain_matches_jax(layout, d, dtype):
+    sq, skv = (100, 100) if layout in ("global_with_pads", "grouped") else (70, 130)
+    q, k, v = _qkv(d, 2, sq, skv, 3, d)
+    sq_ids, skv_ids = _layouts(sq, skv, seed=d)[layout]
+    ref = _jax_ref(q, k, v, sq_ids, skv_ids, dtype)
+    got = k9.segment_attention_fwd_plain(_t(q, dtype), _t(k, dtype), _t(v, dtype),
+                                         _t(sq_ids, torch.int32), _t(skv_ids, torch.int32),
+                                         chunk=32)
+    assert got.dtype == dtype and tuple(got.shape) == q.shape
+    np.testing.assert_allclose(got.float().numpy(), ref, **TOL[dtype])
+    if layout == "unmatched_rows":
+        assert np.all(got.float().numpy()[:, ::7] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chunked_equals_unchunked(dtype):
+    """Each query row's softmax is its own, so the chunk only changes the
+    shapes of the products: within 1e-6 (fp32) or one bf16 ulp."""
+    q, k, v = _qkv(3, 2, 90, 90, 2, 32)
+    sq_ids, skv_ids = _layouts(90, 90, seed=3)["global_with_pads"]
+    args = (_t(q, dtype), _t(k, dtype), _t(v, dtype), _t(sq_ids, torch.int32),
+            _t(skv_ids, torch.int32))
+    whole = k9.segment_attention_fwd_plain(*args, chunk=4096)
+    tol = dict(rtol=1e-6, atol=1e-6) if dtype == torch.float32 else dict(rtol=8e-3, atol=8e-3)
+    for chunk in (1, 7, 64):
+        torch.testing.assert_close(k9.segment_attention_fwd_plain(*args, chunk=chunk).float(),
+                                   whole.float(), **tol)
+
+
+@pytest.mark.parametrize("impl", [None, "xla"])
+def test_segment_attention_routes_match_jax(impl):
+    """The functional entry point on CPU tensors (plain version, or the
+    score-matrix path on request), with a scale given and seg_kv defaulted."""
+    q, k, v = _qkv(5, 2, 80, 80, 2, 16)
+    row_valid = np.arange(80)[None, :] < np.array([[71], [33]])
+    seg = tfa.segment_ids_from_valid(torch.from_numpy(row_valid))
+    jseg = jfa.segment_ids_from_valid(jnp.asarray(row_valid))
+    np.testing.assert_array_equal(seg.numpy(), np.asarray(jseg))
+    ref = jfa.segment_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jseg,
+                                scale=0.3, impl="xla")
+    got = tfa.segment_attention(_t(q), _t(k), _t(v), seg, scale=0.3, impl=impl)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL[torch.float32])
+
+
+def test_segment_ids_from_groups_matches_jax():
+    group = np.arange(40).reshape(2, 20) // 3
+    valid = np.arange(20)[None, :] < np.array([[17], [5]])
+    got = tfa.segment_ids_from_groups(torch.from_numpy(group), torch.from_numpy(valid))
+    ref = jfa.segment_ids_from_groups(jnp.asarray(group), jnp.asarray(valid))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    with pytest.raises(ValueError, match="impl"):
+        tfa.segment_attention(torch.zeros(1, 4, 1, 16), torch.zeros(1, 4, 1, 16),
+                              torch.zeros(1, 4, 1, 16), got[:1, :4], impl="flash")
+
+
+def test_kv_tiles_visited_follows_the_segment_ranges():
+    """Segments of 64 rows aligned to the kv tiles: each 128-query tile
+    visits its own two kv tiles only. One global segment with pads: a valid
+    query tile visits the kv tiles holding valid rows, a mixed one all
+    tiles, an all-pad one the tiles holding pads."""
+    seg = torch.arange(256, dtype=torch.int32).reshape(1, 256) // 64
+    assert k9.kv_tiles_visited(seg, seg) == (4, 8)
+    valid = torch.from_numpy(_valid_segments(300, [200]))
+    # Query tiles: rows 0-127 valid, 128-255 mixed, 256-299 pad; kv tiles
+    # 0-2 valid, 3 mixed, 4 pad: 4 + 5 + 2 visits.
+    assert k9.kv_tiles_visited(valid, valid) == (11, 15)

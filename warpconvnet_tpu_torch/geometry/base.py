@@ -44,3 +44,7 @@ class GeometryMixin:
                 f"{tuple(self.features.shape[:2])}"
             )
         return dataclasses.replace(self, features=features)
+
+    def mask_features(self):
+        """Same geometry with the features of pad rows zeroed."""
+        return self.replace_features(torch.where(self.valid_mask()[..., None], self.features, 0))

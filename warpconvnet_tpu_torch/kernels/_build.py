@@ -32,6 +32,7 @@ _lib: Optional[ctypes.CDLL] = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_int64
 _SIGNATURES = {
     # int wct_kernel_map_probe(keys, in_nv, n, out_coords, out_nv, m,
     #                          offsets, k, sx, sy, sz, b, table, stream)
@@ -51,6 +52,10 @@ _SIGNATURES = {
     "wct_depth_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # int wct_depth_bwd_fused(x, g, w, table, dx, dw, b, n, k, c, dtype, stream)
     "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # int wct_segment_attention_fwd(q, k, v, seg_q, seg_kv, out, b, sq, skv, h, d,
+    #                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, dtype, stream)
+    "wct_segment_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P],
 }
 
 

@@ -1,4 +1,4 @@
-"""Carry JAX variables over to the port's modules: a MinkUNet, a
+"""Carry JAX variables over to the port's modules: a MinkUNet, a Volt, a
 ``SparseConvNeXtBlock``, and a single sparse conv (dense, grouped or
 depthwise).
 
@@ -125,6 +125,80 @@ def conv_variables_to_state_dict(
     ``SparseDepthwiseConv3d`` onto the port module's ``weight``/``bias``.
     Raises as :func:`convnext_block_variables_to_state_dict` does."""
     return _checked(_map_tree(variables, _CONV), model)
+
+
+# Inside a JAX VoltBlock scope (block{i}): path below the scope -> (port
+# name below blocks.{i}, flax Dense kernel to transpose).
+_VOLT_BLOCK = {
+    ("LayerNorm_0", "scale"): ("norm1.weight", False),
+    ("LayerNorm_0", "bias"): ("norm1.bias", False),
+    ("LayerNorm_1", "scale"): ("norm2.weight", False),
+    ("LayerNorm_1", "bias"): ("norm2.bias", False),
+    ("attn", "qkv", "kernel"): ("attn.qkv.weight", False),  # [3, C, C] as it is
+    ("attn", "qkv", "bias"): ("attn.qkv.bias", False),
+    ("attn", "proj", "kernel"): ("attn.proj.weight", True),
+    ("attn", "proj", "bias"): ("attn.proj.bias", False),
+    ("mlp", "Dense_0", "kernel"): ("mlp.fc1.weight", True),
+    ("mlp", "Dense_0", "bias"): ("mlp.fc1.bias", False),
+    ("mlp", "Dense_1", "kernel"): ("mlp.fc2.weight", True),
+    ("mlp", "Dense_1", "bias"): ("mlp.fc2.bias", False),
+    ("ls1", "gamma"): ("ls1.gamma", False),
+    ("ls2", "gamma"): ("ls2.gamma", False),
+    ("token_conv", "conv", "kernel"): ("token_conv.conv.weight", False),
+    ("token_conv", "LayerNorm_0", "scale"): ("token_conv.norm.weight", False),
+    ("token_conv", "LayerNorm_0", "bias"): ("token_conv.norm.bias", False),
+}
+_VOLT_TOP = {
+    ("stem1", "kernel"): ("stem1.weight", False),
+    ("stem2", "kernel"): ("stem2.weight", False),
+    ("tok_conv1", "kernel"): ("tok_conv1.weight", False),
+    ("tok_conv2", "kernel"): ("tok_conv2.weight", False),
+    ("tok_proj", "kernel"): ("tok_proj.weight", True),
+    ("tok_proj", "bias"): ("tok_proj.bias", False),
+    ("fuse", "kernel"): ("fuse.weight", True),
+    ("fuse", "bias"): ("fuse.bias", False),
+    ("head", "kernel"): ("head.weight", False),
+    ("head", "bias"): ("head.bias", False),
+}
+
+
+def _volt_name(path, top_norms):
+    collection, *scopes, leaf = path
+    if collection == "params" and scopes:
+        key = (*scopes, leaf)
+        if key in _VOLT_TOP:
+            return _VOLT_TOP[key]
+        if len(scopes) == 1 and scopes[0] in top_norms and leaf in ("scale", "bias"):
+            return f"{top_norms[scopes[0]]}.{'weight' if leaf == 'scale' else 'bias'}", False
+        block = re.fullmatch(r"block(\d+)", scopes[0])
+        if block and key[1:] in _VOLT_BLOCK:
+            name, transpose = _VOLT_BLOCK[key[1:]]
+            return f"blocks.{block[1]}.{name}", transpose
+        conv = re.fullmatch(r"conv(\d+)", scopes[0])
+        if conv and ("params", *key[1:]) in _CONVNEXT:
+            name, transpose = _CONVNEXT[("params", *key[1:])]
+            return f"conv_blocks.{conv[1]}.{name}", transpose
+    raise KeyError(f"unmapped variable {'/'.join(path)}")
+
+
+def volt_variables_to_state_dict(
+    variables: Mapping, model: Optional[nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``Volt`` variable tree (``{"params": ...}``) onto the port's
+    :class:`Volt` names.
+
+    flax names the unnamed top-level LayerNorms by creation order: the two
+    stem norms, then the convblock tokenizer's two (when ``tok_conv1`` is
+    present), then the trunk's final norm. Raises on an unmapped variable;
+    given ``model``, also on missing entries and shape mismatches."""
+    convblock = "tok_conv1" in variables.get("params", {})
+    norms = ["stem1_norm", "stem2_norm"] + (["tok_norm1", "tok_norm"] if convblock else [])
+    top_norms = {f"LayerNorm_{i}": name for i, name in enumerate(norms + ["norm"])}
+    out = {}
+    for path, value in _flatten(variables):
+        name, transpose = _volt_name(path, top_norms)
+        out[name] = _leaf(value, transpose)
+    return _checked(out, model)
 
 
 def variables_to_state_dict(

@@ -1,5 +1,6 @@
 """Masked batch norm over geometry features (counterpart of
-``warpconvnet_tpu/nn/modules/norms.py`` ``BatchNorm``)."""
+``warpconvnet_tpu/nn/modules/norms.py`` ``BatchNorm``), and a LayerNorm with
+flax's numerics."""
 
 from __future__ import annotations
 
@@ -48,3 +49,15 @@ class BatchNorm(nn.Module):
             mean.to(x.dtype), var.to(x.dtype),
         )
         return geometry.replace_features(out)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``flax.linen.LayerNorm`` as the JAX models use it: eps 1e-6, fp32
+    parameters, and an fp32 result whatever the input's dtype (flax promotes
+    bf16 features against its fp32 scale)."""
+
+    def __init__(self, dim: int, device: constants.Device = constants.DEFAULT_DEVICE):
+        super().__init__(dim, eps=1e-6, device=constants.resolve_device(device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
