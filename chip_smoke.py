@@ -1,9 +1,10 @@
 """GPU smoke run of the PyTorch port on an H100: MinkUNet18 inference and
 training, the depthwise / grouped conv path (a SparseConvNeXtBlock), and
-Volt-s inference (segment attention).
+Volt-s inference and training (segment attention and its backward).
 
     python3 chip_smoke.py                  # the smoke run below
-    python3 chip_smoke.py --profile DIR    # profile a train step, a ConvNeXt fwd+bwd, a Volt-s forward
+    python3 chip_smoke.py --profile DIR    # profile a MinkUNet18 train step, a ConvNeXt
+                                           # fwd+bwd, a Volt-s forward and a Volt-s train step
 
 Phases (any failure exits non-zero):
   1. device: needs CUDA and an sm_90 card; prints the card's name and
@@ -58,6 +59,22 @@ Phases (any failure exits non-zero):
      12 K9 launches per forward, and agreement with the plain path on the
      card; a small fp32 Volt checks the kernels tightly. Logs forward ms,
      tokens/s, points/s and peak memory.
+ 14. K9-dkv and K9-dq: the segment-attention backward at Volt-s's trunk
+     shape (as phase 12, dO zero on pad rows), fp32 and bf16, then the
+     grouped and cross layouts and a grouped layout whose every 7th query
+     row matches nothing; each against the plain backward (relative error
+     of dq, dk and dv, zero dq on unmatched rows), timed, with the backward
+     of one scaled_dot_product_attention per scene on its valid rows as the
+     library yardstick.
+ 15. volt train: Volt-s (as phase 13, token capacity 40960, Adam 1e-3,
+     seeded labels) takes 5 steps on one bench scene pair on the kernel
+     path and 2 from the same state on the plain path. Checks 1 K1, 2 K2,
+     2 K4, 12 K9, 12 K9-dkv and 12 K9-dq launches per step, a finite loss
+     and a finite grad on every parameter, a loss falling from step 2 on
+     (Adam's first update at lr 1e-3 overshoots), and step 1's loss,
+     gradients and parameters against the plain path; a
+     small fp32 Volt step checks the kernels tightly. Logs step ms,
+     points/s, tokens/s and peak memory.
 Prints one JSON line of per-kernel results (time, plain time, bound from
 the bytes and operations of this run's inputs, the time of a one-call
 PyTorch equivalent where one exists, launches on the main paths), then the
@@ -135,6 +152,24 @@ K9_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # stem convs round differently where sums run in another order; the small
 # fp32 Volt runs the same sums in another order.
 VOLT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# K9-dkv / K9-dq against the plain backward, relative Frobenius error of
+# each gradient. fp32: the same sums in another order. bf16: both widen the
+# bf16 inputs to fp32 and round each gradient once (one ulp is 2^-8).
+K9_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+VOLT_TRAIN_STEPS = 5
+VOLT_PER_STEP = dict(k1=1, fwd=2, fused=2, attn=VOLT_DEPTH, dkv=VOLT_DEPTH, dq=VOLT_DEPTH)
+# Volt step 1 on the kernel path against the plain path, same card, same
+# state (the rules of TRAIN_TOL). fp32 (the small Volt): the same sums in
+# another order (measured: loss equal, gradients 2.4e-7, run-to-run 1.1e-7
+# from the stem's K4 atomics). bf16 stem, fp32 trunk (bench scale):
+# measured loss 7.3e-8, gradients 6.3e-5 (worst the stem's conv weights,
+# 1.9e-4), run-to-run 5.7e-6; the trunk is fp32, so the bf16 rounding that
+# widens MinkUNet's bound touches only the two stem convs. Bounds about 3x
+# (H100 80GB HBM3, 700 W).
+VOLT_TRAIN_TOL = {
+    torch.float32: dict(loss=2e-7, grads=7.5e-7),
+    torch.bfloat16: dict(loss=2e-7, grads=1.8e-4),
+}
 # Bounds (H100 SXM datasheet figures): HBM rate, and
 # dense peaks by the inputs' type.
 HBM_BYTES_PER_S = 3.35e12
@@ -209,8 +244,9 @@ def make_batch(seed: int, n_cap: int, device, channels: int = 3, scale: float = 
 @functools.cache
 def wrappers():
     """Every kernel wrapper, keyed as in ``PER_STEP`` (the depthwise ones
-    by ``d``-keys); taken once, so that counts can be read while
-    ``plain_kernels`` patches them."""
+    by ``d``-keys, segment attention as ``attn``, ``dkv`` and ``dq``);
+    taken once, so that counts can be read while ``plain_kernels`` patches
+    them."""
     from warpconvnet_tpu_torch.kernels import depthwise_fma as dw
     from warpconvnet_tpu_torch.kernels import implicit_gemm as ig, sorted_search
     from warpconvnet_tpu_torch.kernels import segment_attention as k9
@@ -219,7 +255,8 @@ def wrappers():
                 dgrad=ig.implicit_gemm_dgrad, wgrad=ig.implicit_gemm_wgrad,
                 fused=ig.implicit_gemm_bwd_fused, dfwd=dw.depthwise_fma_fwd,
                 ddgrad=dw.depthwise_fma_dgrad, dwgrad=dw.depthwise_fma_wgrad,
-                dfused=dw.depthwise_fma_bwd_fused, attn=k9.segment_attention_fwd)
+                dfused=dw.depthwise_fma_bwd_fused, attn=k9.segment_attention_fwd,
+                dkv=k9.segment_attention_bwd_dkv, dq=k9.segment_attention_bwd_dq)
 
 
 @contextmanager
@@ -231,12 +268,16 @@ def plain_kernels():
     from warpconvnet_tpu_torch.kernels import segment_attention as k9
 
     modules = {"k1": sorted_search, "fwd": ig, "dgrad": ig, "wgrad": ig, "fused": ig,
-               "dfwd": dw, "ddgrad": dw, "dwgrad": dw, "dfused": dw, "attn": k9}
+               "dfwd": dw, "ddgrad": dw, "dwgrad": dw, "dfused": dw, "attn": k9, "dkv": k9,
+               "dq": k9}
     with ExitStack() as stack:
         for key, fn in wrappers().items():
             stack.enter_context(mock.patch.object(
                 modules[key], fn.__name__, getattr(modules[key], fn.__name__ + "_plain")
             ))
+        # K9-dkv and K9-dq share one pass of the plain backward.
+        stack.enter_context(mock.patch.object(k9, "segment_attention_bwd",
+                                              k9.segment_attention_bwd_plain))
         yield
 
 
@@ -959,6 +1000,133 @@ def phase_k9(tokens):
     return entry
 
 
+def sdpa_bwd_ms(q, k, v, do, nq, nkv):
+    """The backward (dq, dk, dv) of one scaled_dot_product_attention per
+    scene on its valid rows, under autograd: the library yardstick for
+    K9-dkv + K9-dq. The forwards run once, outside the timing."""
+    from torch.nn import functional as F
+
+    leaves, outs, grads = [], [], []
+    for b in range(q.shape[0]):
+        qb, kb, vb = (t[b:b + 1, :n].transpose(1, 2).contiguous().requires_grad_(True)
+                      for t, n in ((q, nq[b]), (k, nkv[b]), (v, nkv[b])))
+        outs.append(F.scaled_dot_product_attention(qb, kb, vb))
+        grads.append(do[b:b + 1, : nq[b]].transpose(1, 2).contiguous())
+        leaves += [qb, kb, vb]
+    return cuda_ms(lambda: torch.autograd.grad(outs, leaves, grads, retain_graph=True),
+                   iters=3, warmup=1)
+
+
+def phase_k9_bwd(tokens):
+    """K9-dkv and K9-dq against the plain backward at Volt-s's trunk shape
+    (validity from the real token counts ``tokens``), fp32 and bf16, and on
+    a grouped layout, cross attention and a grouped layout with unmatched
+    query rows. Returns the JSON entries (keys "dkv", "dq")."""
+    from warpconvnet_tpu_torch.kernels import segment_attention as k9
+    from warpconvnet_tpu_torch.nn.functional.flash_attention import (
+        segment_ids_from_groups,
+        segment_ids_from_valid,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    s, d, h = TOKEN_CAPACITY, VOLT_S_C // VOLT_HEADS, VOLT_HEADS
+    rows = torch.arange(s, device="cuda")[None, :]
+    valid = rows < torch.as_tensor(tokens, device="cuda")[:, None]
+    cross_q = [min(t, 4096) - 96 * (i + 1) for i, t in enumerate(tokens)]
+    grouped = segment_ids_from_groups(rows // 1024, valid)
+    unmatched = torch.where(rows % 7 == 0, 1_000_000, grouped).to(torch.int32)
+    cases = (  # name, Sq, seg_q, seg_kv, valid rows (q, kv) for the library
+        ("global", s, segment_ids_from_valid(valid), None, (tokens, tokens)),
+        ("grouped 1024", s, grouped, None, None),
+        ("cross Sq 4096", 4096,
+         segment_ids_from_valid(rows[:, :4096] < torch.as_tensor(cross_q, device="cuda")[:, None]),
+         segment_ids_from_valid(valid), (cross_q, tokens)),
+        ("grouped 1024, every 7th query row unmatched", s, unmatched, grouped, None),
+    )
+    entries = {}
+    for name, sq, seg_q, seg_kv, lib_rows in cases:
+        seg_kv = seg_q if seg_kv is None else seg_kv
+        pairs = equal_segment_pairs(seg_q, seg_kv)
+        q32 = torch.randn((B, sq, h, d), generator=gen, device="cuda") * 2.5
+        k32 = torch.randn((B, s, h, d), generator=gen, device="cuda")
+        v32 = torch.randn((B, s, h, d), generator=gen, device="cuda")
+        # The caller (Attention) zeroes pad outputs, so dO is zero there.
+        do32 = torch.randn((B, sq, h, d), generator=gen, device="cuda") * (
+            seg_q != 2_000_000_000)[..., None, None]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+            out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+            di = k9.rowsum_o_do(out, do)
+            args = (q, k, v, do, lse, di, seg_q, seg_kv)
+            dk, dv = k9.segment_attention_bwd_dkv(*args)
+            dq = k9.segment_attention_bwd_dq(*args)
+            ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
+            torch.cuda.synchronize()
+            errs, max_abs = [], []
+            for label, g, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                check(g.dtype == dtype and g.shape == r.shape, f"K9-bwd {name}: {label} {g.dtype}")
+                check(bool(torch.isfinite(g).all()), f"K9-bwd {name}: non-finite {label}")
+                errs.append(rel_err(g, r))
+                max_abs.append(float((g.float() - r.float()).abs().max()))
+                check(errs[-1] <= K9_BWD_TOL[dtype], f"K9-bwd {name} {str(dtype)[6:]}: {label} "
+                      f"relative error {errs[-1]:.3e} > {K9_BWD_TOL[dtype]}")
+            empty = ~torch.isfinite(lse[:, 0])
+            check(bool((dq[empty] == 0).all()), f"K9-bwd {name}: unmatched rows' dq not zero")
+            check(not name.endswith("unmatched") or bool(empty.any()),
+                  f"K9-bwd {name}: no query row with lse +inf")
+            heavy = name in ("global", "cross Sq 4096")
+            dkv_ms = cuda_ms(lambda: k9.segment_attention_bwd_dkv(*args), iters=2 if heavy else 5,
+                             warmup=1)
+            dq_ms = cuda_ms(lambda: k9.segment_attention_bwd_dq(*args), iters=2 if heavy else 5,
+                            warmup=1)
+            plain_ms = None
+            if name == "global":
+                plain_ms = cuda_ms(lambda: k9.segment_attention_bwd_plain(
+                    q, k, v, out, lse, do, seg_q, seg_kv), iters=1, warmup=1)
+            lib_ms = None if lib_rows is None else sdpa_bwd_ms(q, k, v, do, *lib_rows)
+            inputs = nbytes(q, k, v, do, lse, di, seg_q, seg_kv)
+            dkv_bd = bound(inputs + nbytes(dk, dv), 8.0 * pairs * d * h, dtype)
+            dq_bd = bound(inputs + nbytes(dq), 6.0 * pairs * d * h, dtype)
+            fn_bd = bound(inputs + nbytes(dq, dk, dv), 10.0 * pairs * d * h, dtype)
+            tflops = 14.0 * pairs * d * h / (dkv_ms + dq_ms) / 1e9
+            lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+            plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
+            log(f"K9-bwd {name} [B={B}, Sq={sq}, Skv={s}, H={h}, D={d}] {str(dtype)[6:]}: rel err "
+                f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (max_abs "
+                f"{max(max_abs):.3e}); K9-dkv {dkv_ms:.4f} ms (bound {dkv_bd[0]:.4f}), K9-dq "
+                f"{dq_ms:.4f} ms (bound {dq_bd[0]:.4f}); both {dkv_ms + dq_ms:.4f} ms "
+                f"({tflops:.2f} TFLOP/s of the kernels' 14 D a pair on {pairs} equal-segment "
+                f"pairs), function bound {fn_bd[0]:.4f} ms ({fn_bd[1]}, 10 D a pair); plain "
+                f"{plain_txt}, sdpa backward {lib_txt}; {int(empty.sum())} unmatched query "
+                f"rows; card {card_state()}")
+            if name != "global":
+                continue
+            common = dict(
+                route="cuda", source="warpconvnet_tpu_torch/csrc/segment_attention_bwd.cu",
+                shape=f"B={B} S={s} H={h} D={d} fp32, validity {tokens} (Volt-s trunk; the main "
+                      "path's dtype)",
+                plain_ms=plain_ms, library_ms=lib_ms, function_bound_ms=fn_bd[0],
+                note="plain_ms: one pass of the plain backward (dq, dk and dv); library_ms: "
+                     "the SDPA backward (dq, dk and dv), per scene on its valid rows")
+            res = dict(dkv=dict(max_abs_err=max(max_abs[1:]), rel_err=max(errs[1:]), ms=dkv_ms,
+                                bound_ms=dkv_bd[0], bound_by=dkv_bd[1]),
+                       dq=dict(max_abs_err=max_abs[0], rel_err=errs[0], ms=dq_ms,
+                               bound_ms=dq_bd[0], bound_by=dq_bd[1]))
+            if dtype == torch.float32:
+                entries["dkv"] = dict(
+                    name="segment_attention_bwd_dkv",
+                    replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:796",
+                    **common, **res["dkv"])
+                entries["dq"] = dict(
+                    name="segment_attention_bwd_dq",
+                    replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:1146",
+                    **common, **res["dq"])
+            else:
+                for key in ("dkv", "dq"):
+                    entries[key]["bf16"] = dict(res[key], plain_ms=plain_ms, library_ms=lib_ms)
+    return entries
+
+
 def volt_forward(model, vox):
     """(logits, forward ms by CUDA events, the tokenizer's num_valid):
     ``sparse_reduce`` is wrapped to read the token counts the model saw."""
@@ -1046,9 +1214,10 @@ def phase_volt(device):
     return launches
 
 
-def train_steps(model, state0, batch, labels, steps, plain):
+def train_steps(model, state0, batch, labels, steps, plain, keys=tuple(PER_STEP)):
     """Run ``steps`` train steps from ``state0`` with a fresh Adam. Returns
-    (losses, step ms, launches per step, step 1's (loss, grads, params))."""
+    (losses, step ms, launches per step of the kernels ``keys``, step 1's
+    (loss, grads, params))."""
     from warpconvnet_tpu_torch.parallel.train import make_segmentation_train_step
 
     model.load_state_dict(state0)
@@ -1057,13 +1226,13 @@ def train_steps(model, state0, batch, labels, steps, plain):
     losses, times, launches, first = [], [], [], None
     with plain_kernels() if plain else nullcontext():
         for i in range(steps):
-            before = all_counts()
+            before = all_counts(keys)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             loss = step(batch, labels)["loss"]
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-            launches.append({k: v - before[k] for k, v in all_counts().items()})
+            launches.append({k: v - before[k] for k, v in all_counts(keys).items()})
             losses.append(float(loss))
             check(np.isfinite(losses[-1]), f"step {i}: loss {losses[-1]}")
             for name, p in model.named_parameters():
@@ -1086,12 +1255,13 @@ def grad_err(a, b):
     return total, ", ".join(f"{n} {e:.2e}" for e, n in worst)
 
 
-def compare_first_steps(got, ref, again, state0, dtype, label):
+def compare_first_steps(got, ref, again, state0, dtype, label, tol=None):
     """Step 1 on the kernel path against the plain path: loss, all
-    gradients (relative Frobenius error) and the post-step parameters.
-    ``again`` is a second kernel-path step 1, whose spread from the first
-    (fp32 atomics add in a varying order) is logged beside the error."""
-    tol = TRAIN_TOL[dtype]
+    gradients (relative Frobenius error) and the post-step parameters,
+    within ``tol`` (default ``TRAIN_TOL[dtype]``). ``again`` is a second
+    kernel-path step 1, whose spread from the first (fp32 atomics add in a
+    varying order) is logged beside the error."""
+    tol = tol or TRAIN_TOL[dtype]
     loss_err = abs(got[0] - ref[0]) / abs(ref[0])
     g_err, g_worst = grad_err(got[1], ref[1])
     spread, _ = grad_err(again[1], got[1])
@@ -1120,6 +1290,14 @@ def compare_first_steps(got, ref, again, state0, dtype, label):
         f"{firm / total:.4%} of entries with firm, agreeing grads)")
 
 
+def labels_for(vox, seed):
+    """Seeded class labels [B, N] on vox's device."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(
+        rng.integers(0, NUM_CLASSES, size=tuple(vox.coords.shape[:2])).astype(np.int64)
+    ).to(vox.coords.device)
+
+
 def phase_train(device):
     from warpconvnet_tpu_torch import constants
     from warpconvnet_tpu_torch.models.mink_unet import MinkUNet18
@@ -1127,12 +1305,6 @@ def phase_train(device):
     model = MinkUNet18(3, NUM_CLASSES, device=device, generator=torch.Generator().manual_seed(0))
     state0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
     params0 = {n: p.detach().clone() for n, p in model.named_parameters()}
-
-    def labels_for(vox, seed):
-        rng = np.random.default_rng(seed)
-        return torch.from_numpy(
-            rng.integers(0, NUM_CLASSES, size=tuple(vox.coords.shape[:2])).astype(np.int64)
-        ).to(device)
 
     # Tight check first: one small fp32 step, kernel path against plain path.
     small = make_batch(200, 4096, device).lex_sort()
@@ -1168,6 +1340,73 @@ def phase_train(device):
         f"plain {[round(t, 3) for t in p_steady]}; step 1 kernel {ms[0]:.3f}, plain "
         f"{p_ms[0]:.3f}; {pps:.1f} points/s; peak memory {peak / 2**30:.3f} GiB; "
         f"launches over {TRAIN_STEPS} steps {totals}")
+    return totals
+
+
+def phase_volt_train(device):
+    """Volt-s training: a small fp32 step against the plain path, then
+    VOLT_TRAIN_STEPS bench-scale steps on the kernel path and step 1 again
+    on the plain path. Returns the kernel steps' launches."""
+    from warpconvnet_tpu_torch import constants
+    from warpconvnet_tpu_torch.models.volt import build_volt
+
+    keys = tuple(wrappers())
+
+    def snapshot(model):
+        return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    # Tight check first: a small fp32 Volt (dim 64, 4 heads of D 16, depth 2).
+    small_model = build_volt("volt-s", 3, NUM_CLASSES, dim=64, num_heads=4, depth=2,
+                             device=device, generator=torch.Generator().manual_seed(1))
+    state0, params0 = snapshot(small_model)
+    small = make_batch(500, 4096, device).lex_sort()
+    small_labels = labels_for(small, 501)
+    runs = [train_steps(small_model, state0, small, small_labels, 1, plain, keys)[3]
+            for plain in (False, False, True)]
+    compare_first_steps(runs[0], runs[2], runs[1], params0, torch.float32,
+                        "volt train fp32 (dim 64, depth 2, n_cap 4096)",
+                        VOLT_TRAIN_TOL[torch.float32])
+    del small_model, runs
+
+    model = build_volt("volt-s", 3, NUM_CLASSES, token_capacity=TOKEN_CAPACITY, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    state0, params0 = snapshot(model)
+    batch = make_batch(7, N_CAP, device).lex_sort()
+    labels = labels_for(batch, 8)
+    points, tokens = int(batch.num_valid.sum()), sum(token_counts(batch))
+    constants.set_compute_dtype(torch.bfloat16)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, ms, launches, got = train_steps(model, state0, batch, labels, VOLT_TRAIN_STEPS,
+                                                plain=False, keys=keys)
+        totals = all_counts(keys)
+        peak = torch.cuda.max_memory_allocated()
+        p_losses, p_ms, p_launches, ref = train_steps(model, state0, batch, labels, 2,
+                                                      plain=True, keys=keys)
+        _, _, _, again = train_steps(model, state0, batch, labels, 1, plain=False, keys=keys)
+    finally:
+        constants.set_compute_dtype(None)
+    log(f"volt train bf16 conv compute, fp32 trunk: {points} voxels, {tokens} tokens; losses "
+        f"kernel path {losses}, plain path {p_losses}")
+    want = {k: VOLT_PER_STEP.get(k, 0) for k in keys}
+    for i, per in enumerate(launches):
+        check(per == want, f"volt step {i}: launches {per}, want {want}")
+    check(all(sum(per.values()) == 0 for per in p_launches), "the plain path launched a kernel")
+    compare_first_steps(got, ref, again, params0, torch.bfloat16, "volt train bf16 (bench scale)",
+                        VOLT_TRAIN_TOL[torch.bfloat16])
+    # Adam's first update moves every weight by about lr; at lr 1e-3 it
+    # overshoots on this randomly initialised trunk (the plain path's
+    # second loss shows the same), so the loss is held to fall from step 2.
+    check(losses[-1] < losses[1], f"volt loss did not fall after step 2: {losses}")
+    steady = ms[1:]
+    secs = sum(steady) / 1e3
+    log(f"volt train: step ms (steps 2-{VOLT_TRAIN_STEPS}) {[round(t, 3) for t in steady]}; "
+        f"step 1 kernel {ms[0]:.3f}, plain {p_ms[0]:.3f}; {points * len(steady) / secs:.1f} "
+        f"points/s, {tokens * len(steady) / secs:.1f} tokens/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches over {VOLT_TRAIN_STEPS} steps "
+        f"{ {k: n for k, n in totals.items() if n} }; card {card_state()}")
     return totals
 
 
@@ -1207,7 +1446,7 @@ def profile_run(label, fn, out_dir, trace_name):
 def profile_paths(device, out_dir):
     """Profile one bench-scale bf16 MinkUNet18 train step and one
     SparseConvNeXtBlock fwd+bwd, each after two warm-up runs, and one
-    Volt-s forward after one."""
+    Volt-s forward and one Volt-s train step, each after one."""
     from warpconvnet_tpu_torch import constants
     from warpconvnet_tpu_torch.models.mink_unet import MinkUNet18
     from warpconvnet_tpu_torch.nn.modules.blocks import SparseConvNeXtBlock
@@ -1246,14 +1485,21 @@ def profile_paths(device, out_dir):
     with torch.inference_mode():
         forward_ms(model, vox)
         profile_run("Volt-s forward", lambda: forward_ms(model, vox), out_dir, "volt_trace.json")
+    step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), lr=LR),
+                                        NUM_CLASSES)
+    batch = vox.lex_sort()
+    labels = labels_for(batch, 8)
+    step(batch, labels)
+    profile_run("Volt-s train step", lambda: step(batch, labels), out_dir,
+                "volt_train_trace.json")
     constants.set_compute_dtype(None)
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="DIR",
-                        help="profile a bench-scale train step, a ConvNeXt block fwd+bwd and a "
-                             "Volt-s forward into DIR instead")
+                        help="profile a bench-scale MinkUNet18 train step, a ConvNeXt block "
+                             "fwd+bwd, a Volt-s forward and a Volt-s train step into DIR instead")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
@@ -1296,8 +1542,10 @@ def main() -> int:
     paths.update(phase_convnext(device))
     paths.update(phase_strided_grouped(device))
     k9 = phase_k9(tokens)
+    k9_bwd = phase_k9_bwd(tokens)
     paths[f"Volt-s inference ({REQUESTS} requests)"] = phase_volt(device)
-    entries = dict(k1=k1, fwd=k2, **bwd, **depth, attn=k9)
+    paths[f"Volt-s train ({VOLT_TRAIN_STEPS} steps)"] = phase_volt_train(device)
+    entries = dict(k1=k1, fwd=k2, **bwd, **depth, attn=k9, **k9_bwd)
     for key, entry in entries.items():
         by_path = {p: c[key] for p, c in paths.items() if c[key]}
         check(by_path != {}, f"{entry['name']}: launched on no main path")

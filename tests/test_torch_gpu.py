@@ -1,7 +1,8 @@
 """CUDA kernels K1, K2 (forward and dgrad), K3, K4, K6 (forward and dgrad),
-K7, K8 and K9 against their plain versions, and the conv and ConvNeXt-block
-backward and a small Volt forward on CUDA against the CPU plain route, on
-the card.
+K7, K8, K9 and its backward K9-dkv / K9-dq against their plain versions,
+and the conv and ConvNeXt-block backward, an Attention backward, a small
+Volt forward and a small Volt train step on CUDA against the CPU plain
+route, on the card.
 
 These tests need an NVIDIA GPU with nvcc (sm_90) and skip elsewhere. They
 import no JAX, so on a machine without it run them with the repository's
@@ -540,3 +541,184 @@ def test_small_volt_on_cuda_matches_cpu_plain_route(cuda):
     assert [f.launches - b for f, b in zip(fns, before)] == [1, 2, 2]
     assert bool((got[~vox.valid_mask()] == 0).all())
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+
+
+# K9-dkv / K9-dq against the plain backward (relative Frobenius error of
+# each gradient): fp32 sums the same products in another order; bf16
+# inputs are widened to fp32 in both, so only the rounding of the
+# gradients (one bf16 ulp, 2^-8) and the sums' order differ.
+K9_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _rel(got, ref):
+    got, ref = got.float(), ref.float()
+    return float((got - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def _k9_bwd_case(cuda, layout, dtype, d):
+    """_k9_case's layouts, and "empty": self-attention (S 200) whose every
+    ninth query row matches no kv row. dO is zero on pad query rows."""
+    if layout != "empty":
+        q, k, v, seg_q, seg_kv = _k9_case(cuda, layout, dtype, d)
+    else:
+        q, k, v, _, _ = _k9_case(cuda, "global", dtype, d)
+        gen = torch.Generator(device=cuda).manual_seed(d + 1)
+        seg_kv = torch.randint(0, 3, (2, 200), generator=gen, device=cuda, dtype=torch.int32)
+        seg_q = seg_kv.clone()
+        seg_q[:, ::9] = 5
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    do = torch.where((seg_q == 2_000_000_000)[..., None, None], 0, do).to(dtype)
+    return q, k, v, do, seg_q, seg_kv
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "cross", "empty"])
+def test_k9_bwd_matches_plain(cuda, layout, dtype, d):
+    """K9's lse against the plain forward's, then K9-dkv and K9-dq (one
+    launch each) against the plain backward on the kernel's own output and
+    lse; rows that match nothing get lse +inf and zero dq."""
+    q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, layout, dtype, d)
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    _, ref_lse = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, return_lse=True)
+    before = (k9.segment_attention_bwd_dkv.launches, k9.segment_attention_bwd_dq.launches)
+    got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    assert (k9.segment_attention_bwd_dkv.launches, k9.segment_attention_bwd_dq.launches) == (
+        before[0] + 1, before[1] + 1)
+    finite = torch.isfinite(ref_lse)
+    assert lse.dtype == torch.float32 and torch.equal(torch.isfinite(lse), finite)
+    assert bool((lse[~finite] == float("inf")).all())
+    torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=1e-5, atol=1e-5)
+    for g, r, x in zip(got, ref, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape and g.is_contiguous()
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel(g, r) <= K9_BWD_TOL[dtype]
+    empty = ~finite[:, 0]  # [B, Sq]: rows with no match
+    assert layout not in ("cross", "empty") or bool(empty.any())
+    assert bool((got[0][empty] == 0).all())
+
+
+def test_k9_bwd_reads_strided_qkv(cuda):
+    """Q, K and V as slices of one [B, S, 3, H, D] projection and a strided
+    dO give what contiguous copies give."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qkv = torch.randn((2, 150, 3, 4, 32), generator=gen, device=cuda)
+    seg = (torch.arange(150, device=cuda) < 120).to(torch.int32).expand(2, 150).contiguous()
+    q, k, v = (qkv[:, :, i] for i in range(3))
+    do = torch.randn((2, 150, 2, 4, 32), generator=gen, device=cuda)[:, :, 1]
+    out, lse = k9.segment_attention_fwd(q, k, v, seg, seg, scale=0.1, return_lse=True)
+    got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg, seg, scale=0.1)
+    want = k9.segment_attention_bwd(q.contiguous(), k.contiguous(), v.contiguous(), out, lse,
+                                    do.contiguous(), seg, seg, scale=0.1)
+    ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg, seg, scale=0.1)
+    torch.cuda.synchronize()
+    for g, w, r in zip(got, want, ref):
+        assert torch.equal(g, w)
+        assert _rel(g, r) <= K9_BWD_TOL[torch.float32]
+
+
+def test_k9_bwd_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, "global", torch.float32, 64)
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    di = k9.rowsum_o_do(out, do)
+    args = (q, k, v, do, lse, di, seg_q, seg_kv)
+    for fn in (k9.segment_attention_bwd_dkv, k9.segment_attention_bwd_dq):
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, do, lse.double(), di, seg_q, seg_kv)
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, do, lse[:, :1].contiguous(), di, seg_q, seg_kv)
+        with pytest.raises(ValueError, match="di"):
+            fn(q, k, v, do, lse, di.transpose(1, 2).contiguous().transpose(1, 2), seg_q, seg_kv)
+        with pytest.raises(ValueError, match="do"):
+            fn(q, k, v, do.to(torch.bfloat16), lse, di, seg_q, seg_kv)
+        with pytest.raises(ValueError, match="do"):
+            fn(q, k, v, do[:, :-1], lse, di, seg_q, seg_kv)
+        with pytest.raises(ValueError, match="share"):
+            fn(q, k.to(torch.bfloat16), v, do, lse, di, seg_q, seg_kv)
+        with pytest.raises(ValueError, match="int32"):
+            fn(q, k, v, do, lse, di, seg_q.long(), seg_kv)
+        with pytest.raises(ValueError, match="contiguous"):  # heads innermost, not D
+            fn(q, k, v, do.transpose(2, 3).contiguous().transpose(2, 3), lse, di, seg_q, seg_kv)
+        with pytest.raises(ValueError, match="head dim"):
+            fn(*(t[..., :48].contiguous() for t in (q, k, v, do)), lse, di, seg_q, seg_kv)
+        fn(*args)  # the same call with valid inputs launches
+
+
+def test_attention_grads_reach_the_fused_qkv_projection_on_cuda(cuda):
+    """An Attention (fused QKV, RoPE, pad rows) fwd+bwd on the card: q and
+    k through RoPE, v as a strided slice of the projection; K9, K9-dkv and
+    K9-dq launch once each and every gradient matches the CPU plain route."""
+    from warpconvnet_tpu_torch.nn.modules.attention import Attention
+
+    gen = torch.Generator().manual_seed(0)
+    x0 = torch.randn((2, 90, 64), generator=gen)
+    valid = torch.arange(90)[None] < torch.tensor([[80], [50]])
+    coords = torch.randint(-20, 20, (2, 90, 3), generator=gen)
+    r = torch.randn((2, 90, 64), generator=gen)
+    results = []
+    for dev in ("cpu", cuda):
+        att = Attention(64, 2, rope_base=100.0, device=dev,
+                        generator=torch.Generator().manual_seed(1))
+        x = x0.to(dev).detach().requires_grad_(True)
+        fns = (k9.segment_attention_fwd, k9.segment_attention_bwd_dkv, k9.segment_attention_bwd_dq)
+        before = [f.launches for f in fns]
+        (att(x, valid.to(dev), coords.to(dev)) * r.to(dev)).sum().backward()
+        launched = [f.launches - b for f, b in zip(fns, before)]
+        grads = {n: p.grad for n, p in att.named_parameters()}
+        grads["x"] = x.grad
+        assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
+        results.append(({n: g.cpu() for n, g in grads.items()}, launched))
+    assert results[0][1] == [0, 0, 0] and results[1][1] == [1, 1, 1]
+    for n, g in results[0][0].items():
+        torch.testing.assert_close(results[1][0][n], g, rtol=1e-4,
+                                   atol=1e-4 * float(g.abs().max()))
+
+
+def test_small_volt_train_step_on_cuda_gives_every_parameter_a_grad(cuda):
+    """A small fp32 Volt (dim 32, 2 heads, depth 2) takes one train step on
+    the card: every parameter gets a finite gradient (an attention whose
+    output lost its grad_fn would leave the QKV weights' grads None), with
+    1 K1, 2 K2, 2 K4, 2 K9, 2 K9-dkv and 2 K9-dq launches, and the loss and
+    gradients agree with the CPU plain route."""
+    vox = _voxels(4, "cpu", n=1024, c=3).lex_sort()
+    labels = torch.randint(0, 5, vox.coords.shape[:2], generator=torch.Generator().manual_seed(2))
+    fns = (sorted_search.kernel_map_probe, implicit_gemm.implicit_gemm_fwd,
+           implicit_gemm.implicit_gemm_bwd_fused, k9.segment_attention_fwd,
+           k9.segment_attention_bwd_dkv, k9.segment_attention_bwd_dq)
+    results = []
+    for dev in ("cpu", cuda):
+        model = build_volt("volt-s", 3, 5, dim=32, num_heads=2, depth=2, stem_dim=8, device=dev,
+                           generator=torch.Generator().manual_seed(0))
+        step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), 1e-3), 5)
+        before = [f.launches for f in fns]
+        loss = float(step(vox.to(dev), labels.to(dev))["loss"])
+        launched = [f.launches - b for f, b in zip(fns, before)]
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
+        results.append((loss, {n: g.cpu() for n, g in grads.items()}, launched))
+    assert results[0][2] == [0] * 6  # CPU: plain versions only
+    assert results[1][2] == [1, 2, 2, 2, 2, 2]
+    assert abs(results[1][0] - results[0][0]) <= 1e-5 * abs(results[0][0])
+    for n, g in results[0][1].items():
+        torch.testing.assert_close(results[1][1][n], g, rtol=1e-3, atol=1e-4 * float(g.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_on_three_input_channels_matches_plain(cuda, dtype):
+    """Volt's stem1 backward: K4 on a 3^3 self-map from 3 channels to 64
+    (the ragged C_in edge inside one 64-channel slice, bf16 rows of 6
+    bytes that take the unvectorised copy)."""
+    vox = _voxels(10, cuda, c=3).lex_sort()
+    _, _, sub, _ = generate_output_coords_and_kernel_map(vox, 3)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    w = (torch.randn((27, 3, 64), generator=gen, device=cuda) / 9).to(dtype)
+    x = vox.features.to(dtype).contiguous()
+    g = (torch.randn((x.shape[0], x.shape[1], 64), generator=gen, device=cuda) / 30).to(dtype)
+    dx, dw = implicit_gemm.implicit_gemm_bwd_fused(x, g, w, sub.table, sub.offsets)
+    ref_dx, ref_dw = implicit_gemm.implicit_gemm_bwd_fused_plain(x, g, w, sub.table, sub.offsets)
+    torch.cuda.synchronize()
+    assert dx.dtype == dtype and tuple(dx.shape) == tuple(x.shape) and dw.dtype == torch.float32
+    torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype])
+    torch.testing.assert_close(dw, ref_dw, **DW_TOL)

@@ -1,0 +1,215 @@
+"""Port parity for segment attention's backward: the plain backward
+(``segment_attention_bwd_plain``, K9-dkv and K9-dq's plain versions) and
+the ``SegmentAttention`` autograd Function against ``jax.vjp`` of JAX
+``segment_attention(..., impl="xla")``, the way JAX's own tests
+differentiate it on the CPU. Layouts: global attention with pads, grouped
+(patch) segments, cross attention with separate ids, rows that match no kv
+row. Tolerances: fp32 2e-5 (rtol and atol, as the JAX tests use); bf16 by
+relative Frobenius error (see ``BF16_TOL``). Also a float64 gradcheck of
+the Function's plain route, the routing, and a spy showing that an
+``Attention`` backward goes through the Function once per layer."""
+
+from unittest import mock
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from tests.test_torch_attention import C, H, _attention_inputs, _load, _perturbed
+from tests.test_torch_attention import _t as _as_tensor
+from tests.test_torch_segment_attention import _JDTYPE, _layouts, _qkv, _t
+from warpconvnet_tpu.nn.functional import flash_attention as jfa
+from warpconvnet_tpu.nn.modules import attention as jmod
+from warpconvnet_tpu_torch.kernels import segment_attention as k9
+from warpconvnet_tpu_torch.models import convert
+from warpconvnet_tpu_torch.nn.functional import flash_attention as tfa
+from warpconvnet_tpu_torch.nn.modules.attention import Attention
+
+TOL = dict(rtol=2e-5, atol=2e-5)
+# bf16: JAX rounds the probabilities, dP and dS to bf16 inside its
+# backward; the port's plain backward widens the bf16 inputs once and
+# computes in fp32, rounding only the gradients. Relative Frobenius error
+# of each gradient against JAX's: measured at most 3.2e-3 (about one bf16
+# ulp, 2^-8 = 3.9e-3), held to 1e-2.
+BF16_TOL = 1e-2
+LAYOUTS = ["global_with_pads", "grouped", "cross", "unmatched_rows"]
+PAD = int(jfa._PAD_SEGMENT)
+
+
+def _case(layout, d, seed=0):
+    """(q, k, v, do, seg_q, seg_kv) as numpy for B = 2, H = 3; do is zero on
+    pad query rows, as a caller that masks pad outputs gives it."""
+    sq, skv = (100, 100) if layout in ("global_with_pads", "grouped") else (70, 130)
+    q, k, v = _qkv(seed + d, 2, sq, skv, 3, d)
+    sq_ids, skv_ids = _layouts(sq, skv, seed=d)[layout]
+    do = np.random.default_rng(seed + 1).standard_normal(q.shape).astype(np.float32)
+    do = np.where((sq_ids == PAD)[..., None, None], 0, do).astype(np.float32)
+    return q, k, v, do, sq_ids, skv_ids
+
+
+def _jax_grads(q, k, v, do, sq_ids, skv_ids, dtype, scale=None):
+    jd = _JDTYPE[dtype]
+
+    def f(q_, k_, v_):
+        return jfa.segment_attention(q_, k_, v_, jnp.asarray(sq_ids), jnp.asarray(skv_ids),
+                                     scale=scale, impl="xla")
+
+    out, vjp = jax.vjp(f, *(jnp.asarray(x, jd) for x in (q, k, v)))
+    return [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, jd))]
+
+
+def _rel(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+
+
+def _check(got, ref, dtype):
+    for g, r in zip(got, ref):
+        g = g.float().numpy()
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, r, **TOL)
+        else:
+            assert _rel(g, r) <= BF16_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_plain_backward_matches_jax(layout, d, dtype):
+    q, k, v, do, sq_ids, skv_ids = _case(layout, d)
+    ref = _jax_grads(q, k, v, do, sq_ids, skv_ids, dtype)
+    tq, tk, tv, tdo = (_t(x, dtype) for x in (q, k, v, do))
+    seg_q, seg_kv = _t(sq_ids, torch.int32), _t(skv_ids, torch.int32)
+    o, lse = k9.segment_attention_fwd_plain(tq, tk, tv, seg_q, seg_kv, chunk=32, return_lse=True)
+    assert lse.dtype == torch.float32 and tuple(lse.shape) == (2, 3, q.shape[1])
+    got = k9.segment_attention_bwd_plain(tq, tk, tv, o, lse, tdo, seg_q, seg_kv, chunk=32)
+    assert all(g.dtype == dtype and g.is_contiguous() for g in got)
+    assert [tuple(g.shape) for g in got] == [q.shape, k.shape, v.shape]
+    _check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_kernel_plain_versions_split_the_backward(layout):
+    """K9-dkv's and K9-dq's plain versions, fed di = rowsum(o * do), give
+    the one-pass plain backward's dk, dv and dq."""
+    q, k, v, do, sq_ids, skv_ids = (_t(x) if x.dtype != np.int32 else _t(x, torch.int32)
+                                    for x in _case(layout, 16, seed=3))
+    o, lse = k9.segment_attention_fwd_plain(q, k, v, sq_ids, skv_ids, return_lse=True)
+    dq, dk, dv = k9.segment_attention_bwd_plain(q, k, v, o, lse, do, sq_ids, skv_ids)
+    di = k9.rowsum_o_do(o, do)
+    assert tuple(di.shape) == tuple(lse.shape)
+    got_dk, got_dv = k9.segment_attention_bwd_dkv(q, k, v, do, lse, di, sq_ids, skv_ids)
+    got_dq = k9.segment_attention_bwd_dq(q, k, v, do, lse, di, sq_ids, skv_ids)
+    for got, want in ((got_dq, dq), (got_dk, dk), (got_dv, dv)):
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_lse_and_zero_gradients_on_pad_and_empty_rows(layout):
+    """lse is the masked log-sum-exp of the scaled scores and +inf exactly
+    on the rows that match nothing; those rows, and pad rows whose output
+    gradient is zero, get zero gradients, as do kv rows no query attends."""
+    q, k, v, do, sq_ids, skv_ids = _case(layout, 16, seed=5)
+    tq, tk, tv, tdo = map(_t, (q, k, v, do))
+    seg_q, seg_kv = _t(sq_ids, torch.int32), _t(skv_ids, torch.int32)
+    o, lse = k9.segment_attention_fwd_plain(tq, tk, tv, seg_q, seg_kv, chunk=16, return_lse=True)
+    pair = sq_ids[:, :, None] == skv_ids[:, None, :]  # [B, Sq, Skv]
+    s = np.einsum("bqhd,bkhd->bhqk", q, k) * 16 ** -0.5
+    s = np.where(pair[:, None], s, -np.inf)
+    with np.errstate(divide="ignore"):
+        want = np.log(np.exp(s - s.max(-1, keepdims=True, initial=-1e30)).sum(-1)) + s.max(
+            -1, initial=-1e30)
+    empty = ~pair.any(-1)  # [B, Sq]
+    want = np.where(empty[:, None], np.inf, want)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert np.isposinf(lse.numpy()).sum() == 3 * empty.sum()
+    dq, dk, dv = k9.segment_attention_bwd_plain(tq, tk, tv, o, lse, tdo, seg_q, seg_kv)
+    assert all(bool(torch.isfinite(g).all()) for g in (dq, dk, dv))
+    zero_q = empty | (sq_ids == PAD)
+    assert bool((dq[torch.from_numpy(zero_q)] == 0).all())
+    if layout == "global_with_pads":
+        assert zero_q.any() and bool((dk[torch.from_numpy(skv_ids == PAD)] == 0).all())
+    unattended = torch.from_numpy(~pair.any(1))  # kv rows no query attends
+    assert bool((dk[unattended] == 0).all()) and bool((dv[unattended] == 0).all())
+    if layout == "unmatched_rows":
+        assert empty.any()
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_function_matches_jax(layout):
+    """``segment_attention`` on CPU tensors that require grad: the
+    Function's plain route, differentiated by ``torch.autograd.grad``, with
+    a scale given."""
+    q, k, v, do, sq_ids, skv_ids = _case(layout, 16, seed=7)
+    ref = _jax_grads(q, k, v, do, sq_ids, skv_ids, torch.float32, scale=0.3)
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    with mock.patch.object(tfa.SegmentAttention, "apply", wraps=tfa.SegmentAttention.apply) as spy:
+        out = tfa.segment_attention(tq, tk, tv, _t(sq_ids, torch.int32), _t(skv_ids, torch.int32),
+                                    scale=0.3)
+    assert spy.call_count == 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, (tq, tk, tv), _t(do))
+    _check(got, ref, torch.float32)
+
+
+def test_gradcheck_float64_plain_route():
+    rng = np.random.default_rng(11)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape)).requires_grad_(True)
+               for shape in ((2, 9, 2, 4), (2, 11, 2, 4), (2, 11, 2, 4)))
+    seg_q = torch.from_numpy(rng.integers(0, 3, (2, 9)).astype(np.int32))
+    seg_q[:, ::4] = 7  # rows that match nothing
+    seg_kv = torch.from_numpy(rng.integers(0, 3, (2, 11)).astype(np.int32))
+    assert torch.autograd.gradcheck(
+        lambda a, b, c: tfa.SegmentAttention.apply(a, b, c, seg_q, seg_kv, 0.7), (q, k, v))
+
+
+def test_routing():
+    """No gradient recorded: the bare forward, no Function. A gradient
+    recorded: through the Function. impl="xla": masked_sdpa under autograd,
+    no Function."""
+    q, k, v, _, sq_ids, _ = _case("global_with_pads", 16, seed=9)
+    seg = _t(sq_ids, torch.int32)
+    tq, tk, tv = map(_t, (q, k, v))
+    with mock.patch.object(tfa.SegmentAttention, "apply", wraps=tfa.SegmentAttention.apply) as spy:
+        assert tfa.segment_attention(tq, tk, tv, seg).grad_fn is None
+        with torch.no_grad():
+            tfa.segment_attention(tq, tk, tv.requires_grad_(True), seg)
+        assert spy.call_count == 0
+        out = tfa.segment_attention(tq, tk, tv, seg, impl="xla")
+        assert out.grad_fn is not None and spy.call_count == 0
+        out = tfa.segment_attention(tq, tk, tv, seg)
+        assert out.grad_fn is not None and spy.call_count == 1
+
+
+@pytest.mark.parametrize("case", ["row_valid", "segment_ids", "patches"])
+def test_attention_backward_goes_through_the_function(case):
+    """An Attention (fused QKV, RoPE) backward runs the segment-attention
+    backward once a call, and its parameter and input gradients match
+    ``jax.grad`` of the JAX Attention: q and k reach the QKV projection
+    through RoPE, v as a strided slice of its output."""
+    x, kw = _attention_inputs(case)
+    jatt = jmod.Attention(C, H, rope_base=100.0)
+    jkw = {key: jnp.asarray(val) for key, val in kw.items()}
+    params = _perturbed(jatt.init(jax.random.PRNGKey(1), jnp.asarray(x), **jkw), 9)
+    r = np.random.default_rng(3).standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, xx):
+        return jnp.sum(jatt.apply(p, xx, **jkw) * r)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(params, jnp.asarray(x))
+    att = _load(Attention(C, H, rope_base=100.0, device="cpu"), params, "attn")
+    tx = _t(x).requires_grad_(True)
+    with mock.patch.object(k9, "segment_attention_bwd", wraps=k9.segment_attention_bwd) as spy:
+        (att(tx, **{key: _as_tensor(val) for key, val in kw.items()}) * _t(r)).sum().backward()
+    assert spy.call_count == 1
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgx), **TOL)
+    want = {}
+    for path, value in convert._flatten(jgp["params"]):
+        name, transpose = convert._VOLT_BLOCK[("attn",) + path]
+        want[name.removeprefix("attn.")] = np.asarray(value).T if transpose else np.asarray(value)
+    got = {n: p.grad for n, p in att.named_parameters()}
+    assert set(got) == set(want) and all(g is not None for g in got.values())
+    for name, g in got.items():
+        scale = np.abs(want[name]).max()
+        np.testing.assert_allclose(g.numpy(), want[name], rtol=0, atol=1e-5 * max(scale, 1.0))

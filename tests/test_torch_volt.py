@@ -94,10 +94,25 @@ def test_entry_points_default_to_the_card():
 
 
 def test_volt_path_imports_no_jax():
+    """Importing the Volt modules and taking one training step of a tiny
+    Volt on the CPU (forward, the segment-attention backward, Adam) load
+    neither jax nor the JAX package."""
     code = (
-        "import sys, warpconvnet_tpu_torch.models.volt, warpconvnet_tpu_torch.models.convert, "
-        "warpconvnet_tpu_torch.kernels.segment_attention; "
-        "assert 'jax' not in sys.modules and 'warpconvnet_tpu' not in sys.modules"
+        "import sys, numpy as np, torch\n"
+        "import warpconvnet_tpu_torch.models.convert, warpconvnet_tpu_torch.kernels.segment_attention\n"
+        "from warpconvnet_tpu_torch.geometry.voxels import Voxels\n"
+        "from warpconvnet_tpu_torch.models.volt import build_volt\n"
+        "from warpconvnet_tpu_torch.parallel.train import make_segmentation_train_step\n"
+        "rng = np.random.default_rng(0)\n"
+        "c = np.unique(rng.integers(0, 12, (300, 3)), axis=0).astype(np.int32)[None]\n"
+        "vox = Voxels.create(c, rng.standard_normal(c.shape).astype(np.float32), [c.shape[1]],"
+        " device='cpu')\n"
+        "model = build_volt('volt-s', 3, 5, dim=16, num_heads=1, depth=1, stem_dim=8,"
+        " device='cpu')\n"
+        "step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters()), 5)\n"
+        "step(vox, torch.zeros(c.shape[:2], dtype=torch.long))\n"
+        "assert model.blocks[0].attn.qkv.weight.grad is not None\n"
+        "assert 'jax' not in sys.modules and 'warpconvnet_tpu' not in sys.modules\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True)

@@ -46,6 +46,7 @@ namespace {
 constexpr int BQ = 128;  // query rows per block
 constexpr int BKV = 64;  // kv rows per tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
 
@@ -56,6 +57,7 @@ struct Args {
   const int32_t* seg_q;   // [B, Sq]
   const int32_t* seg_kv;  // [B, Skv]
   void* out;              // [B, Sq, H, D]
+  float* lse;             // [B, H, Sq] or null
   int sq, skv, h;
   int64_t q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;  // batch and row strides, elements
   float scale_log2;                            // softmax scale * log2(e)
@@ -103,6 +105,12 @@ __device__ void mark_kv_tiles(const Args& a, int b, int q0, int32_t* segq, unsig
     }
   }
   __syncthreads();
+}
+
+// Natural-log log-sum-exp of a row from the online softmax's running max m
+// (log2 units of the scaled scores) and sum l; +inf for a row with no match.
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? (m + log2f(l)) * LN2 : INFINITY;
 }
 
 // ---- fp32: CUDA cores, 256 threads as 16 x 16, 8 x 4 scores a thread --------
@@ -284,6 +292,9 @@ __global__ void __launch_bounds__(F_THREADS, D <= 64 ? 2 : 1) seg_attn_f32(Args 
     const float inv = sum > 0.f ? 1.f / sum : 0.f;
     const int r = q0 + (i / 4) * 64 + ty * 4 + i % 4;
     if (r >= a.sq) continue;
+    // m[i] and the reduced sum are the same on the row's 16 threads.
+    if (a.lse != nullptr && tx == 0)
+      a.lse[(int64_t(b) * a.h + hh) * a.sq + r] = row_lse(m[i], sum);
     float* orow = ob + ((int64_t(b) * a.sq + r) * a.h + hh) * D;
 #pragma unroll
     for (int ch = 0; ch < CH; ++ch)
@@ -522,6 +533,11 @@ __global__ void __launch_bounds__(H_THREADS, D <= 64 ? 2 : 1) seg_attn_bf16(Args
   const float inv0 = l0 > 0.f ? 1.f / l0 : 0.f, inv1 = l1 > 0.f ? 1.f / l1 : 0.f;
   bf16* ob = static_cast<bf16*>(a.out);
   const int row0 = q0 + r0, row1 = q0 + r1;
+  if (a.lse != nullptr && tig == 0) {  // m and the reduced l are the same on a quad
+    float* lrow = a.lse + (int64_t(b) * a.h + hh) * a.sq;
+    if (row0 < a.sq) lrow[row0] = row_lse(m0, l0);
+    if (row1 < a.sq) lrow[row1] = row_lse(m1, l1);
+  }
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd) {
     const int col = nd * 8 + tig * 2;
@@ -563,16 +579,17 @@ int launch_d(const Args& a, int b, int dtype, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Strides are
-// in elements; the wrapper checks 16-byte alignment of every row.
+// in elements; the wrapper checks 16-byte alignment of every row. lse may be
+// null.
 extern "C" int wct_segment_attention_fwd(const void* q, const void* k, const void* v,
                                          const int32_t* seg_q, const int32_t* seg_kv, void* out,
-                                         int b, int sq, int skv, int h, int d, int64_t q_sb,
-                                         int64_t q_ss, int64_t k_sb, int64_t k_ss, int64_t v_sb,
-                                         int64_t v_ss, float scale, int dtype,
+                                         float* lse, int b, int sq, int skv, int h, int d,
+                                         int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
+                                         int64_t v_sb, int64_t v_ss, float scale, int dtype,
                                          cudaStream_t stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
   const int kv_tiles = (skv + BKV - 1) / BKV;
-  const Args a{q, k, v, seg_q, seg_kv, out, sq, skv, h, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
+  const Args a{q, k, v, seg_q, seg_kv, out, lse, sq, skv, h, q_sb, q_ss, k_sb, k_ss, v_sb, v_ss,
                scale * LOG2E, (kv_tiles + 31) / 32};
   switch (d) {
     case 16: return launch_d<16>(a, b, dtype, stream);

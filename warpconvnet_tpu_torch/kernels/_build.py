@@ -52,10 +52,18 @@ _SIGNATURES = {
     "wct_depth_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # int wct_depth_bwd_fused(x, g, w, table, dx, dw, b, n, k, c, dtype, stream)
     "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # int wct_segment_attention_fwd(q, k, v, seg_q, seg_kv, out, b, sq, skv, h, d,
+    # int wct_segment_attention_fwd(q, k, v, seg_q, seg_kv, out, lse, b, sq, skv, h, d,
     #                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, dtype, stream)
-    "wct_segment_attention_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+    "wct_segment_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P],
+    # int wct_segment_attention_bwd_dkv(q, k, v, dout, lse, di, seg_q, seg_kv, dk, dv,
+    #                                   b, sq, skv, h, d, strides[8], scale, dtype, stream)
+    "wct_segment_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P],
+    # int wct_segment_attention_bwd_dq(q, k, v, dout, lse, di, seg_q, seg_kv, dq,
+    #                                  b, sq, skv, h, d, strides[8], scale, dtype, stream)
+    "wct_segment_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P],
 }
 
 

@@ -1,18 +1,25 @@
-"""Segment-masked attention kernel K9, forward. Port of the stock Pallas TPU
-flash attention that ``warpconvnet_tpu/nn/functional/flash_attention.py``
-``segment_attention`` (:73-155) calls with ``SegmentIds``.
+"""Segment-masked attention kernels: K9 (forward) and its backward K9-dkv
+and K9-dq. Ports of the stock Pallas TPU flash attention that
+``warpconvnet_tpu/nn/functional/flash_attention.py`` ``segment_attention``
+(:73-155) calls with ``SegmentIds``: its forward, and its backward passes
+``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``.
 
 ``out[b, i, h] = softmax over {j : seg_kv[b, j] == seg_q[b, i]} of
 scale * q[b, i, h] . k[b, j, h], applied to v[b, j, h]``; a query row with no
 matching kv row gives 0. q [B, Sq, H, D] and k, v [B, Skv, H, D] share fp32
-or bf16; out is [B, Sq, H, D] in that dtype. The wrapper runs the CUDA kernel
-(``csrc/segment_attention.cu``) on CUDA tensors and
-:func:`segment_attention_fwd_plain` on CPU tensors, counts its launches in
-``.launches``, and raises on what the kernel does not take.
+or bf16; out is [B, Sq, H, D] in that dtype. The forward can also return the
+rows' log-sum-exp ``lse`` [B, H, Sq] (fp32, natural log, +inf on a row that
+matches nothing), which the backward reads. Each wrapper runs its CUDA
+kernel (``csrc/segment_attention.cu``, ``csrc/segment_attention_bwd.cu``) on
+CUDA tensors and its ``*_plain`` version on CPU tensors, counts its launches
+in ``.launches``, and raises on what the kernel does not take. The kernels
+read q, k, v and dO through their row strides (no copy).
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -27,6 +34,18 @@ KV_TILE = 64  # kv rows per tile
 PLAIN_CHUNK = 1024
 
 
+def _compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """fp32 for fp32 and bf16 inputs, float64 for float64 ones."""
+    return torch.promote_types(x.dtype, torch.float32)
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """scale * q k^T per head: q [B, c, H, D], k [B, Skv, H, D] ->
+    [B, H, c, Skv] in the compute dtype."""
+    acc = _compute_dtype(q)
+    return (q.transpose(1, 2).to(acc) @ k.transpose(1, 2).to(acc).transpose(-1, -2)) * scale
+
+
 def segment_attention_fwd_plain(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -35,16 +54,29 @@ def segment_attention_fwd_plain(
     seg_kv: torch.Tensor,
     scale: Optional[float] = None,
     chunk: int = PLAIN_CHUNK,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """:func:`masked_sdpa` with the pair mask ``seg_q[:, i] == seg_kv[:, j]``,
     ``chunk`` query rows at a time, so that the fp32 scores take
-    B * H * chunk * Skv floats rather than B * H * Sq * Skv."""
-    outs = []
+    B * H * chunk * Skv floats rather than B * H * Sq * Skv. With
+    ``return_lse`` also the rows' log-sum-exp [B, H, Sq] (+inf where a row
+    matches nothing), in the compute dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    outs, lses = [], []
     for i in range(0, q.shape[1], chunk):
         pair = seg_q[:, i:i + chunk, None] == seg_kv[:, None, :]
         outs.append(masked_sdpa(q[:, i:i + chunk], k, v, None, None, pair, scale))
+        if return_lse:
+            s = _scores(q[:, i:i + chunk], k, scale).masked_fill(~pair[:, None], -math.inf)
+            lse = torch.logsumexp(s, dim=-1)
+            lses.append(torch.where(torch.isneginf(lse), math.inf, lse))
     out = torch.cat(outs, dim=1) if outs else torch.empty_like(q)
-    return out.to(q.dtype)
+    out = out.to(q.dtype)
+    if not return_lse:
+        return out
+    b, sq, h, _ = q.shape
+    lse = torch.cat(lses, dim=2) if lses else q.new_empty((b, h, sq), dtype=_compute_dtype(q))
+    return out, lse
 
 
 def _row_strides(name: str, x: torch.Tensor, h: int, d: int) -> Tuple[int, int]:
@@ -59,21 +91,8 @@ def _row_strides(name: str, x: torch.Tensor, h: int, d: int) -> Tuple[int, int]:
     return x.stride(0), x.stride(1)
 
 
-def segment_attention_fwd(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    seg_q: torch.Tensor,
-    seg_kv: torch.Tensor,
-    scale: Optional[float] = None,
-) -> torch.Tensor:
-    """K9 on CUDA tensors, :func:`segment_attention_fwd_plain` on CPU
-    tensors. The kernel takes fp32 or bf16 q/k/v with each row's [H, D]
-    block contiguous (slices of a fused QKV projection are read in place),
-    D in ``HEAD_DIMS``, any Sq and Skv, and int32 segment ids."""
-    if q.device.type == "cpu":
-        return segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, scale)
-    name = "segment_attention_fwd"
+def _check_qkv(name, q, k, v, seg_q, seg_kv) -> Tuple[int, int, int, int, int]:
+    """(B, Sq, Skv, H, D) of CUDA tensors the kernels take; raises on the rest."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -94,19 +113,172 @@ def segment_attention_fwd(
                              f"{s.dtype} {tuple(s.shape)}")
     if any(t.device != q.device for t in (k, v, seg_q, seg_kv)):
         raise ValueError(f"{name}: inputs on different devices")
+    return b, sq, skv, h, d
+
+
+def segment_attention_fwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    seg_q: torch.Tensor,
+    seg_kv: torch.Tensor,
+    scale: Optional[float] = None,
+    return_lse: bool = False,
+):
+    """K9 on CUDA tensors, :func:`segment_attention_fwd_plain` on CPU
+    tensors. The kernel takes fp32 or bf16 q/k/v with each row's [H, D]
+    block contiguous (slices of a fused QKV projection are read in place),
+    D in ``HEAD_DIMS``, any Sq and Skv, and int32 segment ids. Returns out,
+    or (out, lse) with ``return_lse``."""
+    if q.device.type == "cpu":
+        return segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, scale, return_lse=return_lse)
+    name = "segment_attention_fwd"
+    b, sq, skv, h, d = _check_qkv(name, q, k, v, seg_q, seg_kv)
     strides = [st for name_, t in (("q", q), ("k", k), ("v", v))
                for st in _row_strides(f"{name}: {name_}", t, h, d)]
     lib = _build.load_library()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     rc = lib.wct_segment_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
-        out.data_ptr(), b, sq, skv, h, d, *strides,
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, skv, h, d, *strides,
         float(scale if scale is not None else d ** -0.5), _DTYPE_CODES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, name)
     segment_attention_fwd.launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk):
+    """(dq, dk, dv) by the explicit formulas, ``chunk`` query rows at a
+    time: P = exp(S - lse) over equal segments, dV = P^T dO, dP = dO V^T,
+    dS = P (dP - di), dQ = scale dS K, dK = scale dS^T Q. lse and di are
+    [B, H, Sq]; the gradients come back contiguous in q's dtype."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    acc = _compute_dtype(q)
+    qf, kf, vf, dof = (t.transpose(1, 2).to(acc) for t in (q, k, v, do))  # [B, H, S, D]
+    dq = torch.empty_like(qf)
+    dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
+    for i in range(0, q.shape[1], chunk):
+        rows = slice(i, i + chunk)
+        pair = (seg_q[:, rows, None] == seg_kv[:, None, :])[:, None]  # [B, 1, c, Skv]
+        s = _scores(q[:, rows], k, scale)
+        p = torch.where(pair, torch.exp(s - lse[:, :, rows, None].to(acc)), 0)
+        dv += p.transpose(-1, -2) @ dof[:, :, rows]
+        ds = p * (dof[:, :, rows] @ vf.transpose(-1, -2) - di[:, :, rows, None].to(acc))
+        dq[:, :, rows] = (ds @ kf) * scale
+        dk += (ds.transpose(-1, -2) @ qf[:, :, rows]) * scale
+    return tuple(t.transpose(1, 2).to(q.dtype).contiguous() for t in (dq, dk, dv))
+
+
+def rowsum_o_do(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """rowsum(o * do) as [B, H, Sq] in the compute dtype (the stock
+    backward computes it outside its kernels too)."""
+    acc = _compute_dtype(o)
+    return (o.to(acc) * do.to(acc)).sum(-1).transpose(1, 2).contiguous()
+
+
+def segment_attention_bwd_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    seg_q: torch.Tensor,
+    seg_kv: torch.Tensor,
+    scale: Optional[float] = None,
+    chunk: int = PLAIN_CHUNK,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the segment attention whose forward gave ``o`` and
+    ``lse``, for the output gradient ``do``: the explicit formulas
+    (:func:`_bwd_plain`) with di = rowsum(o * do), in one pass."""
+    return _bwd_plain(q, k, v, do, lse, rowsum_o_do(o, do), seg_q, seg_kv, scale, chunk)
+
+
+def segment_attention_bwd_dkv_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale=None,
+                                    chunk=PLAIN_CHUNK):
+    """(dk, dv): K9-dkv's function by the explicit formulas."""
+    return _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk)[1:]
+
+
+def segment_attention_bwd_dq_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale=None,
+                                   chunk=PLAIN_CHUNK):
+    """dq: K9-dq's function by the explicit formulas."""
+    return _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk)[0]
+
+
+def _bwd_launch(name, q, k, v, do, lse, di, seg_q, seg_kv, scale, shapes):
+    """Checks the inputs of K9-dkv or K9-dq, allocates its outputs
+    (contiguous, ``shapes``, in q's dtype) and launches it into them."""
+    b, sq, skv, h, d = _check_qkv(name, q, k, v, seg_q, seg_kv)
+    if do.dtype != q.dtype or tuple(do.shape) != (b, sq, h, d) or do.device != q.device:
+        raise ValueError(f"{name}: do must be {q.dtype} {(b, sq, h, d)} like q, got "
+                         f"{do.dtype} {tuple(do.shape)}")
+    for t_name, t in (("lse", lse), ("di", di)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != (b, h, sq) or not t.is_contiguous()
+                or t.device != q.device):
+            raise ValueError(f"{name}: {t_name} must be contiguous float32 {(b, h, sq)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    strides = [st for t_name, t in (("q", q), ("k", k), ("v", v), ("do", do))
+               for st in _row_strides(f"{name}: {t_name}", t, h, d)]
+    outs = [torch.empty(shape, dtype=q.dtype, device=q.device) for shape in shapes]
+    lib = _build.load_library()
+    rc = getattr(lib, f"wct_{name}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        seg_q.data_ptr(), seg_kv.data_ptr(), *(t.data_ptr() for t in outs), b, sq, skv, h, d,
+        (ctypes.c_int64 * 8)(*strides), float(scale if scale is not None else d ** -0.5),
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _build.check(lib, rc, name)
+    return outs
+
+
+def segment_attention_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, scale=None):
+    """K9-dkv on CUDA tensors, :func:`segment_attention_bwd_dkv_plain` on
+    CPU tensors: (dk, dv) [B, Skv, H, D], contiguous, in q's dtype. Takes
+    what K9 takes, plus dO [B, Sq, H, D] in q's dtype (read through its row
+    strides) and contiguous fp32 lse and di [B, H, Sq]."""
+    if q.device.type == "cpu":
+        return segment_attention_bwd_dkv_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale)
+    dk, dv = _bwd_launch("segment_attention_bwd_dkv", q, k, v, do, lse, di, seg_q, seg_kv,
+                         scale, (k.shape, k.shape))
+    segment_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def segment_attention_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, scale=None):
+    """K9-dq on CUDA tensors, :func:`segment_attention_bwd_dq_plain` on CPU
+    tensors: dq [B, Sq, H, D], contiguous, in q's dtype; takes what K9-dkv
+    takes."""
+    if q.device.type == "cpu":
+        return segment_attention_bwd_dq_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale)
+    (dq,) = _bwd_launch("segment_attention_bwd_dq", q, k, v, do, lse, di, seg_q, seg_kv, scale,
+                        (q.shape,))
+    segment_attention_bwd_dq.launches += 1
+    return dq
+
+
+def segment_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    o: torch.Tensor,
+    lse: torch.Tensor,
+    do: torch.Tensor,
+    seg_q: torch.Tensor,
+    seg_kv: torch.Tensor,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): on CUDA tensors di = rowsum(o * do) (one torch
+    reduction), then K9-dkv and K9-dq; on CPU tensors
+    :func:`segment_attention_bwd_plain`."""
+    if q.device.type == "cpu":
+        return segment_attention_bwd_plain(q, k, v, o, lse, do, seg_q, seg_kv, scale)
+    di = rowsum_o_do(o, do)
+    dk, dv = segment_attention_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, scale)
+    return segment_attention_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, scale), dk, dv
 
 
 def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor) -> Tuple[int, int]:
@@ -131,3 +303,5 @@ def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor) -> Tuple[int, in
 
 
 segment_attention_fwd.launches = 0
+segment_attention_bwd_dkv.launches = 0
+segment_attention_bwd_dq.launches = 0

@@ -184,13 +184,17 @@ def _volt_name(path, top_norms):
 def volt_variables_to_state_dict(
     variables: Mapping, model: Optional[nn.Module] = None
 ) -> Dict[str, torch.Tensor]:
-    """Map a JAX ``Volt`` variable tree (``{"params": ...}``) onto the port's
-    :class:`Volt` names.
+    """Map a JAX ``Volt`` variable tree (``{"params": ...}``, its gradients
+    in the same layout, or a JAX ``TrainState`` after a step, whose
+    ``params`` are taken: Volt has no batch statistics, and the optimizer
+    state is left out) onto the port's :class:`Volt` names.
 
     flax names the unnamed top-level LayerNorms by creation order: the two
     stem norms, then the convblock tokenizer's two (when ``tok_conv1`` is
     present), then the trunk's final norm. Raises on an unmapped variable;
     given ``model``, also on missing entries and shape mismatches."""
+    if hasattr(variables, "params") and hasattr(variables, "batch_stats"):
+        variables = {"params": variables.params, "batch_stats": variables.batch_stats}
     convblock = "tok_conv1" in variables.get("params", {})
     norms = ["stem1_norm", "stem2_norm"] + (["tok_norm1", "tok_norm"] if convblock else [])
     top_norms = {f"LayerNorm_{i}": name for i, name in enumerate(norms + ["norm"])}

@@ -24,15 +24,17 @@ def masked_sdpa(
     """Scaled dot-product attention with row-validity and pair masks (JAX
     ``masked_sdpa``, ``attention.py:18-60``).
 
-    Logits are fp32 (bf16 inputs multiply exactly in fp32), masked entries
-    are filled with -1e30, a query row with no valid key gives 0, and the
-    probabilities are cast to v's dtype before the product with v, which
-    sums in fp32 and rounds once. Returns [..., Sq, H, D] in v's dtype.
+    Logits are fp32 (bf16 inputs multiply exactly in fp32; float64 inputs
+    stay float64), masked entries are filled with -1e30, a query row with
+    no valid key gives 0, and the probabilities are cast to v's dtype before
+    the product with v, which sums in fp32 and rounds once. Returns
+    [..., Sq, H, D] in v's dtype.
     """
     d = q.shape[-1]
     scale = scale if scale is not None else d ** -0.5
-    qf = q.transpose(-2, -3).float()  # [..., H, Sq, D]
-    kf = k.transpose(-2, -3).float()
+    acc = torch.promote_types(q.dtype, torch.float32)
+    qf = q.transpose(-2, -3).to(acc)  # [..., H, Sq, D]
+    kf = k.transpose(-2, -3).to(acc)
     logits = (qf @ kf.transpose(-1, -2)) * scale  # [..., H, Sq, Skv]
     mask = None
     if row_valid_kv is not None:
@@ -45,7 +47,7 @@ def masked_sdpa(
     probs = torch.softmax(logits, dim=-1)
     if mask is not None:
         probs = torch.where(mask.any(dim=-1, keepdim=True), probs, 0)
-    out = probs.to(v.dtype).float() @ v.transpose(-2, -3).float()
+    out = probs.to(v.dtype).to(acc) @ v.transpose(-2, -3).to(acc)
     out = out.to(v.dtype).transpose(-2, -3)
     if row_valid_q is not None:
         out = torch.where(row_valid_q[..., None, None], out, 0)

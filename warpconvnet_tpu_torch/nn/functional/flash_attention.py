@@ -6,10 +6,13 @@ attention (segment = group) and cross attention (separate ids).
 
 Routing has one rule: on CUDA tensors the hand-written kernel K9 runs
 (``kernels/segment_attention.py``), unless the caller asks for
-``impl="xla"``, the score-matrix path :func:`masked_sdpa`; on CPU tensors
-the plain version runs. K9 takes any sequence length, so the TPU path's
-padding glue (head dim to 128 lanes, sequences to the block, an extra
-sentinel kv row) has no counterpart.
+``impl="xla"``, the score-matrix path :func:`masked_sdpa` (differentiated by
+autograd); on CPU tensors the plain version runs. When a gradient is to be
+recorded, the call goes through :class:`SegmentAttention`, whose backward is
+K9-dkv and K9-dq on CUDA tensors and the plain backward on CPU tensors (the
+counterpart of the stock kernel's ``custom_vjp``). K9 takes any sequence
+length, so the TPU path's padding glue (head dim to 128 lanes, sequences to
+the block, an extra sentinel kv row) has no counterpart.
 """
 
 from __future__ import annotations
@@ -41,6 +44,28 @@ def segment_ids_from_groups(
     return seg
 
 
+class SegmentAttention(torch.autograd.Function):
+    """Segment attention differentiable in q, k and v. The forward runs K9
+    with the rows' log-sum-exp and saves q, k, v, the output and lse; the
+    backward runs K9-dkv and K9-dq (their plain versions on CPU tensors).
+    dq, dk and dv come back contiguous in q's dtype; autograd carries them
+    into the tensors q, k and v were sliced from."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, scale):
+        out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, scale, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse, seg_q, seg_kv)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse, seg_q, seg_kv = ctx.saved_tensors
+        dq, dk, dv = k9.segment_attention_bwd(q, k, v, out, lse, do.contiguous(), seg_q, seg_kv,
+                                              ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
 def segment_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -53,9 +78,10 @@ def segment_attention(
 ) -> torch.Tensor:
     """q [B, Sq, H, D]; k, v [B, Skv, H, D]; seg_q [B, Sq] and seg_kv
     [B, Skv] int (seg_kv defaults to seg_q); scale defaults to D**-0.5.
-    ``impl``: None (K9 on CUDA tensors, the plain version on CPU tensors) or
-    ``"xla"`` (:func:`masked_sdpa` over the full pair mask). Returns
-    [B, Sq, H, D] in q's dtype."""
+    ``impl``: None (K9 on CUDA tensors, the plain version on CPU tensors;
+    through :class:`SegmentAttention` when a gradient is to be recorded, the
+    bare forward otherwise) or ``"xla"`` (:func:`masked_sdpa` over the full
+    pair mask). Returns [B, Sq, H, D] in q's dtype."""
     if seg_kv is None:
         seg_kv = seg_q
     if impl == "xla":
@@ -65,4 +91,6 @@ def segment_attention(
         raise ValueError(f"impl must be None or 'xla', got {impl!r}")
     seg_q = seg_q.to(torch.int32).contiguous()
     seg_kv = seg_kv.to(torch.int32).contiguous()
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return SegmentAttention.apply(q, k, v, seg_q, seg_kv, scale)
     return k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, scale)

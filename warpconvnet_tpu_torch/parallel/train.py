@@ -1,5 +1,7 @@
 """Segmentation training step (counterpart of
-``warpconvnet_tpu/parallel/train.py:37-68``).
+``warpconvnet_tpu/parallel/train.py:37-68``), for any model that maps
+:class:`Voxels` to per-voxel logits: MinkUNet (train-mode BatchNorm, K1-K4)
+and Volt (the segment-attention backward K9-dkv / K9-dq as well).
 
 One step is a train-mode forward (batch statistics, running statistics
 updated), masked softmax cross-entropy in fp32, backward and an optimizer
