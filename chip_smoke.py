@@ -60,12 +60,13 @@ Phases (any failure exits non-zero):
      card; a small fp32 Volt checks the kernels tightly. Logs forward ms,
      tokens/s, points/s and peak memory.
  14. K9-dkv and K9-dq: the segment-attention backward at Volt-s's trunk
-     shape (as phase 12, dO zero on pad rows), fp32 and bf16, then the
-     grouped and cross layouts and a grouped layout whose every 7th query
-     row matches nothing; each against the plain backward (relative error
-     of dq, dk and dv, zero dq on unmatched rows), timed, with the backward
-     of one scaled_dot_product_attention per scene on its valid rows as the
-     library yardstick.
+     shape (as phase 12, dO zero on pad rows), fp32 and bf16 (the bf16
+     kernels on the tensor cores), then the grouped and cross layouts, a
+     grouped layout whose every 7th query row matches nothing, and D 16 (4
+     heads) on the grouped layout; each against the plain backward
+     (relative error of dq, dk and dv, zero dq on unmatched rows), timed,
+     with the backward of one scaled_dot_product_attention per scene on its
+     valid rows as the library yardstick.
  15. volt train: Volt-s (as phase 13, token capacity 40960, Adam 1e-3,
      seeded labels) takes 5 steps on one bench scene pair on the kernel
      path and 2 from the same state on the plain path. Checks 1 K1, 2 K2,
@@ -153,8 +154,10 @@ K9_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # fp32 Volt runs the same sums in another order.
 VOLT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # K9-dkv / K9-dq against the plain backward, relative Frobenius error of
-# each gradient. fp32: the same sums in another order. bf16: both widen the
-# bf16 inputs to fp32 and round each gradient once (one ulp is 2^-8).
+# each gradient. fp32: the same sums in another order. bf16: both round P
+# and scale * dS to bf16 at the stock TPU kernels' points and each gradient
+# once; the fp32 sums' order and exp2 against exp may flip one rounding by
+# an ulp (2^-8).
 K9_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 VOLT_TRAIN_STEPS = 5
 VOLT_PER_STEP = dict(k1=1, fwd=2, fused=2, attn=VOLT_DEPTH, dkv=VOLT_DEPTH, dq=VOLT_DEPTH)
@@ -1020,8 +1023,9 @@ def sdpa_bwd_ms(q, k, v, do, nq, nkv):
 def phase_k9_bwd(tokens):
     """K9-dkv and K9-dq against the plain backward at Volt-s's trunk shape
     (validity from the real token counts ``tokens``), fp32 and bf16, and on
-    a grouped layout, cross attention and a grouped layout with unmatched
-    query rows. Returns the JSON entries (keys "dkv", "dq")."""
+    a grouped layout, cross attention, a grouped layout with unmatched
+    query rows and D 16 grouped. Returns the JSON entries (keys "dkv",
+    "dq"), the bf16 kernels' nested under "bf16"."""
     from warpconvnet_tpu_torch.kernels import segment_attention as k9
     from warpconvnet_tpu_torch.nn.functional.flash_attention import (
         segment_ids_from_groups,
@@ -1029,22 +1033,25 @@ def phase_k9_bwd(tokens):
     )
 
     gen = torch.Generator(device="cuda").manual_seed(4)
-    s, d, h = TOKEN_CAPACITY, VOLT_S_C // VOLT_HEADS, VOLT_HEADS
+    s, dh = TOKEN_CAPACITY, VOLT_S_C // VOLT_HEADS
     rows = torch.arange(s, device="cuda")[None, :]
     valid = rows < torch.as_tensor(tokens, device="cuda")[:, None]
     cross_q = [min(t, 4096) - 96 * (i + 1) for i, t in enumerate(tokens)]
     grouped = segment_ids_from_groups(rows // 1024, valid)
     unmatched = torch.where(rows % 7 == 0, 1_000_000, grouped).to(torch.int32)
-    cases = (  # name, Sq, seg_q, seg_kv, valid rows (q, kv) for the library
-        ("global", s, segment_ids_from_valid(valid), None, (tokens, tokens)),
-        ("grouped 1024", s, grouped, None, None),
-        ("cross Sq 4096", 4096,
+    cases = (  # name, heads, D, Sq, seg_q, seg_kv, valid rows (q, kv) for the library
+        ("global", VOLT_HEADS, dh, s, segment_ids_from_valid(valid), None, (tokens, tokens)),
+        ("grouped 1024", VOLT_HEADS, dh, s, grouped, None, None),
+        ("cross Sq 4096", VOLT_HEADS, dh, 4096,
          segment_ids_from_valid(rows[:, :4096] < torch.as_tensor(cross_q, device="cuda")[:, None]),
          segment_ids_from_valid(valid), (cross_q, tokens)),
-        ("grouped 1024, every 7th query row unmatched", s, unmatched, grouped, None),
+        ("grouped 1024, every 7th query row unmatched", VOLT_HEADS, dh, s, unmatched, grouped,
+         None),
+        # PTv3's patch attention: 1024-row patches, 16-wide heads.
+        ("grouped 1024 D 16", 4, 16, s, grouped, None, None),
     )
     entries = {}
-    for name, sq, seg_q, seg_kv, lib_rows in cases:
+    for name, h, d, sq, seg_q, seg_kv, lib_rows in cases:
         seg_kv = seg_q if seg_kv is None else seg_kv
         pairs = equal_segment_pairs(seg_q, seg_kv)
         q32 = torch.randn((B, sq, h, d), generator=gen, device="cuda") * 2.5
@@ -1074,7 +1081,7 @@ def phase_k9_bwd(tokens):
             check(bool((dq[empty] == 0).all()), f"K9-bwd {name}: unmatched rows' dq not zero")
             check(not name.endswith("unmatched") or bool(empty.any()),
                   f"K9-bwd {name}: no query row with lse +inf")
-            heavy = name in ("global", "cross Sq 4096")
+            heavy = name in ("global", "cross Sq 4096") and dtype == torch.float32
             dkv_ms = cuda_ms(lambda: k9.segment_attention_bwd_dkv(*args), iters=2 if heavy else 5,
                              warmup=1)
             dq_ms = cuda_ms(lambda: k9.segment_attention_bwd_dq(*args), iters=2 if heavy else 5,
@@ -1102,7 +1109,9 @@ def phase_k9_bwd(tokens):
             if name != "global":
                 continue
             common = dict(
-                route="cuda", source="warpconvnet_tpu_torch/csrc/segment_attention_bwd.cu",
+                route="cuda", source=("warpconvnet_tpu_torch/csrc/segment_attention_bwd.cu"
+                                      if dtype == torch.float32 else
+                                      "warpconvnet_tpu_torch/csrc/segment_attention_bwd_bf16.cu"),
                 shape=f"B={B} S={s} H={h} D={d} fp32, validity {tokens} (Volt-s trunk; the main "
                       "path's dtype)",
                 plain_ms=plain_ms, library_ms=lib_ms, function_bound_ms=fn_bd[0],
@@ -1123,7 +1132,10 @@ def phase_k9_bwd(tokens):
                     **common, **res["dq"])
             else:
                 for key in ("dkv", "dq"):
-                    entries[key]["bf16"] = dict(res[key], plain_ms=plain_ms, library_ms=lib_ms)
+                    entries[key]["bf16"] = dict(
+                        res[key], source=common["source"], plain_ms=plain_ms, library_ms=lib_ms,
+                        tflops=(8.0 if key == "dkv" else 6.0) * pairs * d * h / res[key]["ms"] / 1e9,
+                        library_factor=(dkv_ms + dq_ms) / lib_ms)
     return entries
 
 

@@ -7,7 +7,10 @@ differentiate it on the CPU. Layouts: global attention with pads, grouped
 row. Tolerances: fp32 2e-5 (rtol and atol, as the JAX tests use); bf16 by
 relative Frobenius error (see ``BF16_TOL``). Also a float64 gradcheck of
 the Function's plain route, the routing, and a spy showing that an
-``Attention`` backward goes through the Function once per layer."""
+``Attention`` backward goes through the Function once per layer. The plain
+backward is also held against ``jax.vjp`` of ``impl="flash"``: the stock
+Pallas TPU backward kernels themselves, run in TPU interpret mode, whose
+rounding of P and dS it follows (see ``STOCK_TOL``)."""
 
 from unittest import mock
 
@@ -15,6 +18,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+from jax.experimental.pallas import tpu as pltpu
 import torch
 
 from tests.test_torch_attention import C, H, _attention_inputs, _load, _perturbed
@@ -28,12 +32,20 @@ from warpconvnet_tpu_torch.nn.functional import flash_attention as tfa
 from warpconvnet_tpu_torch.nn.modules.attention import Attention
 
 TOL = dict(rtol=2e-5, atol=2e-5)
-# bf16: JAX rounds the probabilities, dP and dS to bf16 inside its
-# backward; the port's plain backward widens the bf16 inputs once and
-# computes in fp32, rounding only the gradients. Relative Frobenius error
-# of each gradient against JAX's: measured at most 3.2e-3 (about one bf16
-# ulp, 2^-8 = 3.9e-3), held to 1e-2.
+# bf16: JAX's xla path rounds the probabilities, dP and dS to bf16 inside
+# its backward; the port's plain backward rounds P and scale * dS as the
+# stock TPU kernels do and keeps dP in fp32. Relative Frobenius error of
+# each gradient against JAX's: measured at most 3.6e-3 (3.2e-3 before P
+# and dS were rounded; about one bf16 ulp, 2^-8 = 3.9e-3), held to 1e-2.
 BF16_TOL = 1e-2
+# Against the stock Pallas backward (interpret mode), relative Frobenius
+# error of each gradient on valid rows. bf16: both round P and scale * dS
+# to bf16 before the products, so only the order of fp32 sums and exp
+# against the stock's exp(S - m) / l differ: measured at most 1.5e-4
+# (B 2, S 300, H 2, D 64; a backward that keeps P and dS in fp32 is off by
+# 2.7e-3 to 2.8e-3 there), held to 1e-3. fp32: measured 3.2e-7, held to
+# 1e-5.
+STOCK_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 LAYOUTS = ["global_with_pads", "grouped", "cross", "unmatched_rows"]
 PAD = int(jfa._PAD_SEGMENT)
 
@@ -88,6 +100,40 @@ def test_plain_backward_matches_jax(layout, d, dtype):
     assert all(g.dtype == dtype and g.is_contiguous() for g in got)
     assert [tuple(g.shape) for g in got] == [q.shape, k.shape, v.shape]
     _check(got, ref, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["global", "grouped"])
+def test_plain_backward_matches_the_stock_pallas_backward(layout, dtype):
+    """The plain backward against ``jax.vjp`` of ``segment_attention(...,
+    impl="flash")`` in TPU interpret mode: the stock K9-dkv / K9-dq Pallas
+    kernels (jax ``flash_attention.py`` ``_flash_attention_dkv_kernel`` and
+    ``_flash_attention_dq_kernel``), with their bf16 rounding of P and dS.
+    B 2, S 300 (280 and 170 valid rows), H 2, D 64; global attention over
+    the valid rows, or segments of 64 rows. Compared on valid rows: the
+    stock pads the sequence with rows of its own."""
+    b, s, h, d = 2, 300, 2, 64
+    rng = np.random.default_rng(0)
+    q, k, v, do = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(4))
+    valid = np.arange(s)[None] < np.array([[280], [170]])
+    group = np.arange(s)[None] // 64 if layout == "grouped" else np.zeros((1, s), np.int64)
+    seg = np.where(valid, group, PAD).astype(np.int32)
+    do = np.where(valid[..., None, None], do, 0).astype(np.float32)
+    jd = _JDTYPE[dtype]
+
+    def f(q_, k_, v_):
+        return jfa.segment_attention(q_, k_, v_, jnp.asarray(seg), impl="flash")
+
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(f, *(jnp.asarray(x, jd) for x in (2 * q, k, v)))
+        ref = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, jd))]
+    tq, tk, tv, tdo = (_t(x, dtype) for x in (2 * q, k, v, do))
+    tseg = _t(seg, torch.int32)
+    o, lse = k9.segment_attention_fwd_plain(tq, tk, tv, tseg, tseg, return_lse=True)
+    got = k9.segment_attention_bwd_plain(tq, tk, tv, o, lse, tdo, tseg, tseg)
+    for g, r in zip(got, ref):
+        assert g.dtype == dtype
+        assert _rel(g.float().numpy()[valid], r[valid]) <= STOCK_TOL[dtype]
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

@@ -1,0 +1,116 @@
+"""Time the segment-attention backward kernels K9-dkv and K9-dq on the card,
+for one checkout of the port or several in turn.
+
+    python3 tools/time_k9_bwd.py                         # this checkout, bf16
+    python3 tools/time_k9_bwd.py --dtype fp32
+    python3 tools/time_k9_bwd.py --tree A --tree B --tree B --tree A
+
+Each ``--tree`` is the root of a checkout (the directory that holds
+``warpconvnet_tpu_torch``); the trees run one after another, each in its
+own process, so two versions of the kernels compare on the same card in
+one call. Layouts: Volt-s's trunk shape (B 2, S 40960, 6 heads, D 64; the
+valid rows the bench scene pair tokenizes to, one segment a scene),
+segments of 1024 rows at that shape, and the same at D 16 with 4 heads.
+Inputs come from a seeded generator on the card, dO is zero on pad rows.
+
+Prints the card's name and power limit, then one JSON line per tree: per
+layout, the mean CUDA-event time of each kernel, the relative Frobenius
+error of dq, dk and dv against the plain backward, and a SHA-1 of the
+gradients' bytes (equal digests: the two trees computed the same bits).
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+B, S, TOKENS = 2, 40960, (38623, 38539)
+ITERS = 10  # timed calls of each kernel (fp32 at the trunk shape: 2)
+LAYOUTS = (("global", 6, 64), ("grouped 1024", 6, 64), ("grouped 1024 D 16", 4, 16))
+
+
+def cuda_ms(torch, fn, iters, warmup=2):
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def digest(torch, *tensors):
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run_tree(tree, dtype_name):
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from warpconvnet_tpu_torch.kernels import segment_attention as k9
+    from warpconvnet_tpu_torch.nn.functional.flash_attention import (
+        segment_ids_from_groups,
+        segment_ids_from_valid,
+    )
+
+    dtype = {"bf16": torch.bfloat16, "fp32": torch.float32}[dtype_name]
+    rows = torch.arange(S, device="cuda")[None, :]
+    valid = rows < torch.as_tensor(TOKENS, device="cuda")[:, None]
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    for name, h, d in LAYOUTS:
+        seg = (segment_ids_from_valid(valid) if name == "global"
+               else segment_ids_from_groups(rows // 1024, valid))
+        q = (torch.randn((B, S, h, d), generator=gen, device="cuda") * 2.5).to(dtype)
+        k, v = (torch.randn((B, S, h, d), generator=gen, device="cuda").to(dtype) for _ in "kv")
+        do = (torch.randn((B, S, h, d), generator=gen, device="cuda") * valid[..., None, None]
+              ).to(dtype)
+        out, lse = k9.segment_attention_fwd(q, k, v, seg, seg, return_lse=True)
+        di = k9.rowsum_o_do(out, do)
+        args = (q, k, v, do, lse, di, seg, seg)
+        dk, dv = k9.segment_attention_bwd_dkv(*args)
+        dq = k9.segment_attention_bwd_dq(*args)
+        ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg, seg)
+        errs = [float((g.float() - r.float()).norm() / r.float().norm())
+                for g, r in zip((dq, dk, dv), ref)]
+        del ref
+        heavy = dtype == torch.float32 and name == "global"
+        n = 2 if heavy else ITERS
+        dkv_ms = cuda_ms(torch, lambda: k9.segment_attention_bwd_dkv(*args), n)
+        dq_ms = cuda_ms(torch, lambda: k9.segment_attention_bwd_dq(*args), n)
+        cases.append(dict(layout=name, heads=h, d=d, dkv_ms=dkv_ms, dq_ms=dq_ms,
+                          sum_ms=dkv_ms + dq_ms, rel_err_dq_dk_dv=errs,
+                          sha1=digest(torch, dq, dk, dv)))
+    return dict(tree=tree, dtype=dtype_name, cases=cases)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", action="append", default=[],
+                        help="root of a checkout; repeat to run several in turn")
+    parser.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
+    parser.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    if args.one:  # one tree, in this process
+        print(json.dumps(run_tree(args.tree[0], args.dtype)), flush=True)
+        return 0
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    trees = args.tree or [os.path.dirname(os.path.dirname(os.path.abspath(__file__)))]
+    rc = 0
+    for tree in trees:
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", "--tree", tree,
+                              "--dtype", args.dtype]).returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

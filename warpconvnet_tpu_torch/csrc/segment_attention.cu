@@ -41,6 +41,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper_bf16.cuh"
+
 namespace {
 
 constexpr int BQ = 128;  // query rows per block
@@ -49,6 +51,9 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 using bf16 = __nv_bfloat16;
+using wct::hopper::cp_async16;
+using wct::hopper::next_tile;
+using wct::hopper::pack_bf16;
 
 struct Args {
   const void* q;
@@ -335,34 +340,8 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                  : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
 }
 
-// 16 bytes global -> shared without passing through registers; zeros when
-// !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(addr), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // .x = lo in the low half
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The first visited kv tile after `after` (-1: the first), or -1.
-__device__ __forceinline__ int next_tile(const unsigned* bits, int nwords, int after) {
-  const int t = after + 1;
-  int w = t >> 5;
-  if (w >= nwords) return -1;
-  unsigned word = bits[w] & (~0u << (t & 31));
-  while (word == 0u) {
-    if (++w >= nwords) return -1;
-    word = bits[w];
-  }
-  return w * 32 + __ffs(word) - 1;
 }
 
 template <int D>

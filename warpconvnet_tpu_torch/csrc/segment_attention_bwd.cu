@@ -1,4 +1,6 @@
-// Segment-masked attention backward: K9-dkv and K9-dq.
+// Segment-masked attention backward: K9-dkv and K9-dq, the fp32 kernels and
+// the C entry points of both dtypes (bf16 runs the tensor-core kernels of
+// segment_attention_bwd_bf16.cu).
 //
 // With S = scale * Q K^T over the pairs of equal segments, P = exp(S - lse)
 // (lse from K9's forward, +inf on rows that match nothing, so their P is
@@ -22,10 +24,9 @@
 //
 // What bounds it on the card: operations. K9-dkv does 8 * D FLOPs per
 // (query, kv) pair of one head with equal segments (S, dP, dV, dK), K9-dq
-// 6 * D (S, dP, dQ); the function needs 10 * D. Both dtypes run on the CUDA
-// cores with fp32 FMA (no TF32: the JAX trunk is fp32); bf16 inputs are
-// widened to fp32 as they are staged. The FMA rate and shared-memory reads
-// bound it.
+// 6 * D (S, dP, dQ); the function needs 10 * D. fp32 runs on the CUDA cores
+// with fp32 FMA (no TF32: the JAX trunk is fp32); the FMA rate and
+// shared-memory reads bound it.
 //
 // Design: one block of 256 threads (16 x 16) per (64-row own tile, head,
 // scene). It marks, in a shared bitmask, every 64-row tile of the other
@@ -38,80 +39,20 @@
 // and dS in registers, and writes them [other][own] to shared memory; the
 // sums over the other rows then run with own rows ty * 4 + i and D / 16
 // output columns a thread. wgmma, TMA and fusing the two passes come later.
-#include <climits>
 #include <cmath>
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "segment_attention_bwd.cuh"
 
 namespace {
 
-constexpr int TILE = 64;      // rows of the own tile and of each visited tile
+using wct::seg_bwd::Args;
+using wct::seg_bwd::LOG2E;
+using wct::seg_bwd::TILE;
+
 constexpr int THREADS = 256;  // 16 x 16
 constexpr int LDT = TILE + 4;  // row stride (floats) of d-major and [other][own] tiles
-constexpr float LOG2E = 1.4426950408889634f;
-
-using bf16 = __nv_bfloat16;
-
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;       // dO [B, Sq, H, D]
-  const float* lse;       // [B, H, Sq], natural log
-  const float* di;        // [B, H, Sq]
-  const int32_t* seg_q;   // [B, Sq]
-  const int32_t* seg_kv;  // [B, Skv]
-  void* dq;               // [B, Sq, H, D]  (K9-dq)
-  void* dk;               // [B, Skv, H, D] (K9-dkv)
-  void* dv;               // [B, Skv, H, D] (K9-dkv)
-  int sq, skv, h;
-  int64_t q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, do_sb, do_ss;  // elements
-  float scale, scale_log2;
-  int nwords;  // bitmask words: ceil(other tiles / 32)
-};
-
-// Loads the own tile's segment ids into seg_own (rows past n_own get
-// INT_MAX and are left out of the range) and sets bit t of `bits` for
-// every other tile t that holds a row j < n_oth with soth[j] in [min, max]
-// of the own tile's segments. Ends with the block synchronised.
-__device__ void mark_tiles(const int32_t* sown, int n_own, int own0, const int32_t* soth,
-                           int n_oth, int nwords, int32_t* seg_own, unsigned* bits, int* range) {
-  const int t = threadIdx.x;
-  for (int i = t; i < nwords; i += THREADS) bits[i] = 0u;
-  if (t == 0) {
-    range[0] = INT_MAX;
-    range[1] = INT_MIN;
-  }
-  __syncthreads();
-  if (t < TILE) {
-    const int r = own0 + t;
-    int s = INT_MAX;
-    if (r < n_own) {
-      s = sown[r];
-      atomicMin(&range[0], s);
-      atomicMax(&range[1], s);
-    }
-    seg_own[t] = s;
-  }
-  __syncthreads();
-  const int lo = range[0], hi = range[1];
-  const int lane = t & 31;
-  // Each warp takes 32 consecutive rows at a time, all inside one tile.
-  for (int j0 = t & ~31; j0 < n_oth; j0 += THREADS) {
-    const int j = j0 + lane;
-    bool hit = false;
-    if (j < n_oth) {
-      const int s = soth[j];
-      hit = s >= lo && s <= hi;
-    }
-    if (__ballot_sync(0xffffffffu, hit) != 0u && lane == 0) {
-      const int tile = j0 / TILE;
-      atomicOr(&bits[tile >> 5], 1u << (tile & 31));
-    }
-  }
-  __syncthreads();
-}
 
 // Eight consecutive values of a row as fp32 (the caller keeps them 16-byte
 // aligned), or zeros when !ok (p is then not read).
@@ -125,24 +66,12 @@ __device__ __forceinline__ void load8(float (&f)[8], const float* p, bool ok) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(float (&f)[8], const bf16* p, bool ok) {
-  uint4 raw = make_uint4(0u, 0u, 0u, 0u);
-  if (ok) raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 x = __bfloat1622float2(h2[e]);
-    f[2 * e] = x.x;
-    f[2 * e + 1] = x.y;
-  }
-}
-
-// Rows [r0, r0 + TILE) of one head of x, widened to fp32, into dst:
+// Rows [r0, r0 + TILE) of one head of x into dst:
 // transposed (dst[d * LDT + r]; lanes run along rows, so the stores do not
 // conflict) or row-major (dst[r * (D + 4) + d]; lanes run along d, so the
 // loads coalesce). Rows past n are zero.
-template <int D, bool TRANSPOSED, typename T>
-__device__ __forceinline__ void stage(float* dst, const T* x, int64_t ss, int r0, int n) {
+template <int D, bool TRANSPOSED>
+__device__ __forceinline__ void stage(float* dst, const float* x, int64_t ss, int r0, int n) {
   for (int idx = threadIdx.x; idx < TILE * (D / 8); idx += THREADS) {
     const int r = TRANSPOSED ? idx % TILE : idx / (D / 8);
     const int c8 = TRANSPOSED ? idx / TILE : idx % (D / 8);
@@ -223,12 +152,9 @@ __device__ __forceinline__ void acc_tile(float (&acc)[4][D / 16], const float* a
   }
 }
 
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(bf16* p, float x) { *p = __float2bfloat16(x); }
-
 // Rows ty * 4 + i of the own tile, columns as in acc_tile, times `mul`.
-template <int D, typename T>
-__device__ __forceinline__ void write_rows(T* out, const float (&acc)[4][D / 16], float mul,
+template <int D>
+__device__ __forceinline__ void write_rows(float* out, const float (&acc)[4][D / 16], float mul,
                                            int own0, int n, int h, int hh, int b, int ty,
                                            int tx) {
   constexpr int VEC = D / 16 < 4 ? D / 16 : 4;
@@ -237,12 +163,12 @@ __device__ __forceinline__ void write_rows(T* out, const float (&acc)[4][D / 16]
   for (int i = 0; i < 4; ++i) {
     const int r = own0 + ty * 4 + i;
     if (r >= n) continue;
-    T* row = out + ((int64_t(b) * n + r) * h + hh) * D;
+    float* row = out + ((int64_t(b) * n + r) * h + hh) * D;
 #pragma unroll
     for (int ch = 0; ch < CH; ++ch)
 #pragma unroll
       for (int e = 0; e < VEC; ++e)
-        store(row + ch * 16 * VEC + tx * VEC + e, acc[i][ch * VEC + e] * mul);
+        row[ch * 16 * VEC + tx * VEC + e] = acc[i][ch * VEC + e] * mul;
   }
 }
 
@@ -257,7 +183,7 @@ constexpr size_t smem_floats(bool dkv) {
 // dO, lse, di); dK = scale * dS^T Q, dV = P^T dO. Otherwise (dq): own rows
 // are query rows (Q, dO, lse, di), visited rows kv rows (K, V);
 // dQ = scale * dS K.
-template <typename T, int D, bool DKV>
+template <int D, bool DKV>
 __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) seg_attn_bwd(Args a) {
   constexpr int NC = D / 16;
   extern __shared__ __align__(16) float smem[];
@@ -282,12 +208,13 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) seg_attn_bwd(Args a)
   const int n_own = DKV ? a.skv : a.sq, n_oth = DKV ? a.sq : a.skv;
   const int32_t* sown = (DKV ? a.seg_kv : a.seg_q) + int64_t(b) * n_own;
   const int32_t* soth = (DKV ? a.seg_q : a.seg_kv) + int64_t(b) * n_oth;
-  mark_tiles(sown, n_own, own0, soth, n_oth, a.nwords, seg_own, bits, range);
+  wct::seg_bwd::mark_tiles<THREADS>(sown, n_own, own0, soth, n_oth, a.nwords, seg_own, bits,
+                                    range);
 
-  const T* qb = static_cast<const T*>(a.q) + int64_t(b) * a.q_sb + int64_t(hh) * D;
-  const T* kb = static_cast<const T*>(a.k) + int64_t(b) * a.k_sb + int64_t(hh) * D;
-  const T* vb = static_cast<const T*>(a.v) + int64_t(b) * a.v_sb + int64_t(hh) * D;
-  const T* dob = static_cast<const T*>(a.dout) + int64_t(b) * a.do_sb + int64_t(hh) * D;
+  const float* qb = static_cast<const float*>(a.q) + int64_t(b) * a.q_sb + int64_t(hh) * D;
+  const float* kb = static_cast<const float*>(a.k) + int64_t(b) * a.k_sb + int64_t(hh) * D;
+  const float* vb = static_cast<const float*>(a.v) + int64_t(b) * a.v_sb + int64_t(hh) * D;
+  const float* dob = static_cast<const float*>(a.dout) + int64_t(b) * a.do_sb + int64_t(hh) * D;
   const float* lse_b = a.lse + (int64_t(b) * a.h + hh) * a.sq;
   const float* di_b = a.di + (int64_t(b) * a.h + hh) * a.sq;
 
@@ -376,23 +303,23 @@ __global__ void __launch_bounds__(THREADS, D <= 64 ? 2 : 1) seg_attn_bwd(Args a)
   }
 
   if constexpr (DKV) {
-    write_rows<D>(static_cast<T*>(a.dk), acc1, a.scale, own0, a.skv, a.h, hh, b, ty, tx);
-    write_rows<D>(static_cast<T*>(a.dv), acc0, 1.f, own0, a.skv, a.h, hh, b, ty, tx);
+    write_rows<D>(static_cast<float*>(a.dk), acc1, a.scale, own0, a.skv, a.h, hh, b, ty, tx);
+    write_rows<D>(static_cast<float*>(a.dv), acc0, 1.f, own0, a.skv, a.h, hh, b, ty, tx);
   } else {
-    write_rows<D>(static_cast<T*>(a.dq), acc1, a.scale, own0, a.sq, a.h, hh, b, ty, tx);
+    write_rows<D>(static_cast<float*>(a.dq), acc1, a.scale, own0, a.sq, a.h, hh, b, ty, tx);
   }
 }
 
 constexpr size_t kMaxSmem = 232448;  // bytes a block may use on sm_90
 
-template <typename T, int D, bool DKV>
+template <int D, bool DKV>
 int launch(const Args& a, int b, cudaStream_t stream) {
   // seg_own, seg_oth, row_lse, row_di, range (padded to 4 ints) and the
   // tile bitmask follow the tiles.
   const size_t bytes =
       smem_floats<D>(DKV) * sizeof(float) + (4 * TILE + 4 + size_t(a.nwords)) * sizeof(int);
   if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
-  auto kernel = seg_attn_bwd<T, D, DKV>;
+  auto kernel = seg_attn_bwd<D, DKV>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(bytes));
   if (err != cudaSuccess) return int(err);
@@ -402,22 +329,17 @@ int launch(const Args& a, int b, cudaStream_t stream) {
   return int(cudaGetLastError());
 }
 
-template <typename T, bool DKV>
-int launch_t(const Args& a, int b, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16, DKV>(a, b, stream);
-    case 32: return launch<T, 32, DKV>(a, b, stream);
-    case 64: return launch<T, 64, DKV>(a, b, stream);
-    case 128: return launch<T, 128, DKV>(a, b, stream);
-    default: return int(cudaErrorInvalidValue);
-  }
-}
-
 template <bool DKV>
 int launch_d(const Args& a, int b, int d, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return launch_t<float, DKV>(a, b, d, stream);
-  if (dtype == 1) return launch_t<bf16, DKV>(a, b, d, stream);
-  return int(cudaErrorInvalidValue);
+  if (dtype == 1) return wct::seg_bwd::launch_bf16(a, b, d, DKV, stream);
+  if (dtype != 0) return int(cudaErrorInvalidValue);
+  switch (d) {
+    case 16: return launch<16, DKV>(a, b, stream);
+    case 32: return launch<32, DKV>(a, b, stream);
+    case 64: return launch<64, DKV>(a, b, stream);
+    case 128: return launch<128, DKV>(a, b, stream);
+    default: return int(cudaErrorInvalidValue);
+  }
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const float* lse,

@@ -10,10 +10,12 @@ matching kv row gives 0. q [B, Sq, H, D] and k, v [B, Skv, H, D] share fp32
 or bf16; out is [B, Sq, H, D] in that dtype. The forward can also return the
 rows' log-sum-exp ``lse`` [B, H, Sq] (fp32, natural log, +inf on a row that
 matches nothing), which the backward reads. Each wrapper runs its CUDA
-kernel (``csrc/segment_attention.cu``, ``csrc/segment_attention_bwd.cu``) on
-CUDA tensors and its ``*_plain`` version on CPU tensors, counts its launches
-in ``.launches``, and raises on what the kernel does not take. The kernels
-read q, k, v and dO through their row strides (no copy).
+kernel (``csrc/segment_attention.cu``; the backward's fp32 kernels in
+``csrc/segment_attention_bwd.cu``, its bf16 ones on the tensor cores in
+``csrc/segment_attention_bwd_bf16.cu``) on CUDA tensors and its ``*_plain``
+version on CPU tensors, counts its launches in ``.launches``, and raises on
+what the kernel does not take. The kernels read q, k, v and dO through
+their row strides (no copy).
 """
 
 from __future__ import annotations
@@ -153,7 +155,10 @@ def segment_attention_fwd(
 def _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk):
     """(dq, dk, dv) by the explicit formulas, ``chunk`` query rows at a
     time: P = exp(S - lse) over equal segments, dV = P^T dO, dP = dO V^T,
-    dS = P (dP - di), dQ = scale dS K, dK = scale dS^T Q. lse and di are
+    dS = scale P (dP - di), dQ = dS K, dK = dS^T Q. As in the stock TPU
+    kernels, P and dS (with the scale folded in) are rounded to the
+    inputs' dtype before the products that read them (a no-op for fp32 and
+    float64); dP and the sums stay in the compute dtype. lse and di are
     [B, H, Sq]; the gradients come back contiguous in q's dtype."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     acc = _compute_dtype(q)
@@ -165,10 +170,11 @@ def _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk):
         pair = (seg_q[:, rows, None] == seg_kv[:, None, :])[:, None]  # [B, 1, c, Skv]
         s = _scores(q[:, rows], k, scale)
         p = torch.where(pair, torch.exp(s - lse[:, :, rows, None].to(acc)), 0)
-        dv += p.transpose(-1, -2) @ dof[:, :, rows]
-        ds = p * (dof[:, :, rows] @ vf.transpose(-1, -2) - di[:, :, rows, None].to(acc))
-        dq[:, :, rows] = (ds @ kf) * scale
-        dk += (ds.transpose(-1, -2) @ qf[:, :, rows]) * scale
+        dv += p.to(q.dtype).to(acc).transpose(-1, -2) @ dof[:, :, rows]
+        dp = dof[:, :, rows] @ vf.transpose(-1, -2)
+        ds = (p * (dp - di[:, :, rows, None].to(acc)) * scale).to(q.dtype).to(acc)
+        dq[:, :, rows] = ds @ kf
+        dk += ds.transpose(-1, -2) @ qf[:, :, rows]
     return tuple(t.transpose(1, 2).to(q.dtype).contiguous() for t in (dq, dk, dv))
 
 
