@@ -174,9 +174,14 @@ VOLT_TRAIN_TOL = {
     torch.bfloat16: dict(loss=2e-7, grads=1.8e-4),
 }
 # Bounds (H100 SXM datasheet figures): HBM rate, and
-# dense peaks by the inputs' type.
+# dense peaks by the inputs' type (fp32: the CUDA cores' FMA).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# fp32-accurate products on the TF32 tensor cores (494.7 TFLOP/s dense):
+# three TF32 products a product (3xTF32), as the fp32 K9-dkv / K9-dq run.
+# The bound_ms of every fp32 attention entry (K9, K9-dkv, K9-dq) is at this
+# rate, with the FMA bound beside it as fma_bound_ms.
+TF32X3_FLOPS = 494.7e12 / 3
 
 
 def log(msg: str) -> None:
@@ -202,12 +207,12 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float = 0.0, dtype=torch.float32):
+def bound(nbytes: float, flops: float = 0.0, dtype=torch.float32, peak=None):
     """(least ms the card could take, "bytes" or "operations"): the larger
-    of the bytes over the HBM rate and the operations over the peak rate
-    for ``dtype``."""
+    of the bytes over the HBM rate and the operations over ``peak`` (by
+    default the peak rate for ``dtype``)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -997,6 +1002,10 @@ def phase_k9(tokens):
                         shape=f"B={B} S={s} H={h} D={dd} fp32, validity {tokens} "
                               "(Volt-s trunk; the main path's dtype)",
                         **res)
+                    # One fp32 peak in every bound_ms: the tensor cores' 3xTF32
+                    # rate, as for K9-dkv / K9-dq; the FMA bound beside it.
+                    bd = bound(nbytes(q, k, v, seg_q, seg_kv, got), flops, peak=TF32X3_FLOPS)
+                    entry.update(bound_ms=bd[0], bound_by=bd[1], fma_bound_ms=res["bound_ms"])
                 else:
                     entry["bf16"] = res
                 res["kv_tiles_visited"] = visited / tiles
@@ -1092,16 +1101,22 @@ def phase_k9_bwd(tokens):
                     q, k, v, out, lse, do, seg_q, seg_kv), iters=1, warmup=1)
             lib_ms = None if lib_rows is None else sdpa_bwd_ms(q, k, v, do, *lib_rows)
             inputs = nbytes(q, k, v, do, lse, di, seg_q, seg_kv)
-            dkv_bd = bound(inputs + nbytes(dk, dv), 8.0 * pairs * d * h, dtype)
-            dq_bd = bound(inputs + nbytes(dq), 6.0 * pairs * d * h, dtype)
-            fn_bd = bound(inputs + nbytes(dq, dk, dv), 10.0 * pairs * d * h, dtype)
+            # fp32 runs 3xTF32 on the tensor cores: its bound is at that
+            # rate; the CUDA cores' FMA bound is kept beside it.
+            peak = TF32X3_FLOPS if dtype == torch.float32 else None
+            dkv_bd = bound(inputs + nbytes(dk, dv), 8.0 * pairs * d * h, dtype, peak)
+            dq_bd = bound(inputs + nbytes(dq), 6.0 * pairs * d * h, dtype, peak)
+            fn_bd = bound(inputs + nbytes(dq, dk, dv), 10.0 * pairs * d * h, dtype, peak)
+            fma_bd = [bound(inputs + nbytes(*outs), f * pairs * d * h)[0] if peak else None
+                      for outs, f in (((dk, dv), 8.0), ((dq,), 6.0))]
+            fma_txt = f"; FMA bounds {fma_bd[0]:.4f}, {fma_bd[1]:.4f}" if peak else ""
             tflops = 14.0 * pairs * d * h / (dkv_ms + dq_ms) / 1e9
             lib_txt = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
             plain_txt = "not timed" if plain_ms is None else f"{plain_ms:.4f} ms"
             log(f"K9-bwd {name} [B={B}, Sq={sq}, Skv={s}, H={h}, D={d}] {str(dtype)[6:]}: rel err "
                 f"dq {errs[0]:.3e} dk {errs[1]:.3e} dv {errs[2]:.3e} (max_abs "
                 f"{max(max_abs):.3e}); K9-dkv {dkv_ms:.4f} ms (bound {dkv_bd[0]:.4f}), K9-dq "
-                f"{dq_ms:.4f} ms (bound {dq_bd[0]:.4f}); both {dkv_ms + dq_ms:.4f} ms "
+                f"{dq_ms:.4f} ms (bound {dq_bd[0]:.4f}{fma_txt}); both {dkv_ms + dq_ms:.4f} ms "
                 f"({tflops:.2f} TFLOP/s of the kernels' 14 D a pair on {pairs} equal-segment "
                 f"pairs), function bound {fn_bd[0]:.4f} ms ({fn_bd[1]}, 10 D a pair); plain "
                 f"{plain_txt}, sdpa backward {lib_txt}; {int(empty.sum())} unmatched query "
@@ -1109,7 +1124,7 @@ def phase_k9_bwd(tokens):
             if name != "global":
                 continue
             common = dict(
-                route="cuda", source=("warpconvnet_tpu_torch/csrc/segment_attention_bwd.cu"
+                route="cuda", source=("warpconvnet_tpu_torch/csrc/segment_attention_bwd_tf32.cu"
                                       if dtype == torch.float32 else
                                       "warpconvnet_tpu_torch/csrc/segment_attention_bwd_bf16.cu"),
                 shape=f"B={B} S={s} H={h} D={d} fp32, validity {tokens} (Volt-s trunk; the main "
@@ -1122,6 +1137,7 @@ def phase_k9_bwd(tokens):
                        dq=dict(max_abs_err=max_abs[0], rel_err=errs[0], ms=dq_ms,
                                bound_ms=dq_bd[0], bound_by=dq_bd[1]))
             if dtype == torch.float32:
+                res["dkv"]["fma_bound_ms"], res["dq"]["fma_bound_ms"] = fma_bd
                 entries["dkv"] = dict(
                     name="segment_attention_bwd_dkv",
                     replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:796",

@@ -567,9 +567,15 @@ def _k9_bwd_case(cuda, layout, dtype, d):
     """_k9_case's layouts; "empty": self-attention (S 200) whose every
     ninth query row matches no kv row; "uniform": self-attention (S 400) in
     segments of 384 rows, so whole own blocks (192 rows at D <= 64, 64 at
-    D 128) and whole visited tiles lie in one segment. dO is zero on pad
-    query rows."""
-    if layout == "uniform":
+    D 128) and whole visited tiles lie in one segment; "long":
+    self-attention over S 8192 rows in one segment, so every gradient row
+    sums 8192 pairs. dO is zero on pad query rows."""
+    if layout == "long":
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        q, k, v = (torch.randn((1, 8192, 2, d), generator=gen, device=cuda) for _ in "qkv")
+        q, k, v = (q * 2).to(dtype), k.to(dtype), v.to(dtype)
+        seg_q = seg_kv = torch.zeros((1, 8192), dtype=torch.int32, device=cuda)
+    elif layout == "uniform":
         gen = torch.Generator(device=cuda).manual_seed(d)
         q, k, v = (torch.randn((2, 400, 2, d), generator=gen, device=cuda) for _ in "qkv")
         q = (q * 2).to(dtype)
@@ -635,6 +641,66 @@ def test_k9_bwd_bf16_rounds_p_and_ds_where_the_stock_kernels_do(cuda, layout, d)
         err, wide_err = _rel(g, r), _rel(w.to(torch.bfloat16), r)
         print(f"{layout} D {d} {label}: kernel {err:.3e}, fp32 arithmetic {wide_err:.3e}")
         assert err <= K9_BWD_STOCK_TOL < wide_err
+
+
+# fp32 K9-dkv / K9-dq (3xTF32 on the tensor cores) against a float64 plain
+# backward on the same inputs, relative Frobenius error of each gradient.
+# On an H100 the kernels read 6.4e-7 to 7.1e-6 (D 16-128, growing with D;
+# the layouts below), the IEEE fp32 plain backward 2.8e-7 to 2.3e-6, a
+# backward of single TF32 products (tf32_matmul(terms=1)) on the same fp32
+# out and lse 6.9e-4 to 1.7e-3. The bound sits 4x above the kernels'
+# largest reading and 23x below the 1xTF32 backward's smallest. The "long"
+# layout fails kernels whose sums drift over long walks: with the tensor
+# cores' accumulators carrying dq, dk and dv over the whole walk, dq read
+# 5.5e-5 to 6.1e-5 there (D 16-128), and 1.0e-5 at 1024 rows a segment.
+K9_BWD_FP64_TOL = 3e-5
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "empty", "uniform", "long"])
+def test_k9_bwd_fp32_is_fp32_accurate(cuda, layout, d):
+    """fp32 K9-dkv and K9-dq against a float64 plain backward within
+    K9_BWD_FP64_TOL, and a 1xTF32 backward outside it. Prints the readings
+    of the kernels, the IEEE fp32 plain backward, the plain backward with
+    emulated 3xTF32 products and the 1xTF32 backward (pytest -rP)."""
+    import functools
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, layout, torch.float32, d)
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    x64 = [t.double() for t in (q, k, v)]
+    o64, lse64 = k9.segment_attention_fwd_plain(*x64, seg_q, seg_kv, return_lse=True)
+    ref = k9.segment_attention_bwd_plain(*x64, o64, lse64, do.double(), seg_q, seg_kv)
+    args = (q, k, v, out, lse, do, seg_q, seg_kv)
+    fp32 = k9.segment_attention_bwd_plain(*args)
+    three = k9.segment_attention_bwd_plain(*args, matmul=k9.tf32_matmul)
+    one = k9.segment_attention_bwd_plain(*args, matmul=functools.partial(k9.tf32_matmul, terms=1))
+    torch.cuda.synchronize()
+
+    def rel64(x, r):
+        return float((x.double() - r).norm() / r.norm())
+
+    for label, g, r, f, e, o in zip(("dq", "dk", "dv"), got, ref, fp32, three, one):
+        err, one_err = rel64(g, r), rel64(o, r)
+        print(f"{layout} D {d} {label} against float64: kernel {err:.3e}, fp32 plain "
+              f"{rel64(f, r):.3e}, 3xTF32 plain {rel64(e, r):.3e}, 1xTF32 plain {one_err:.3e}")
+        assert err <= K9_BWD_FP64_TOL < one_err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["global", "grouped", "empty"])
+def test_k9_bwd_gives_the_same_bits_twice(cuda, layout, dtype):
+    """K9-dkv and K9-dq own their output rows and use no atomics: a second
+    run on the same inputs gives the same bits."""
+    q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, layout, dtype, 64)
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    first = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    second = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_k9_bwd_reads_strided_qkv(cuda):

@@ -15,8 +15,10 @@ Inputs come from a seeded generator on the card, dO is zero on pad rows.
 
 Prints the card's name and power limit, then one JSON line per tree: per
 layout, the mean CUDA-event time of each kernel, the relative Frobenius
-error of dq, dk and dv against the plain backward, and a SHA-1 of the
-gradients' bytes (equal digests: the two trees computed the same bits).
+error of dq, dk and dv against the plain backward (with ``--dtype fp32``
+also against a float64 plain backward of float64 inputs, beside the fp32
+plain backward's), and a SHA-1 of the gradients' bytes (equal digests: the
+two trees computed the same bits).
 """
 
 from __future__ import annotations
@@ -81,13 +83,28 @@ def run_tree(tree, dtype_name):
         ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg, seg)
         errs = [float((g.float() - r.float()).norm() / r.float().norm())
                 for g, r in zip((dq, dk, dv), ref)]
+        fp64 = {}
+        if dtype == torch.float32:
+            x64 = [t.double() for t in (q, k, v)]
+            o64, lse64 = k9.segment_attention_fwd_plain(*x64, seg, seg, chunk=512,
+                                                        return_lse=True)
+            ref64 = k9.segment_attention_bwd_plain(*x64, o64, lse64, do.double(), seg, seg,
+                                                   chunk=512)
+            del x64, o64, lse64
+
+            def rel64(grads):
+                return [float((g.double() - r).norm() / r.norm()) for g, r in zip(grads, ref64)]
+
+            fp64 = dict(rel_err_fp64_dq_dk_dv=rel64((dq, dk, dv)),
+                        plain_rel_err_fp64_dq_dk_dv=rel64(ref))
+            del ref64
         del ref
         heavy = dtype == torch.float32 and name == "global"
         n = 2 if heavy else ITERS
         dkv_ms = cuda_ms(torch, lambda: k9.segment_attention_bwd_dkv(*args), n)
         dq_ms = cuda_ms(torch, lambda: k9.segment_attention_bwd_dq(*args), n)
         cases.append(dict(layout=name, heads=h, d=d, dkv_ms=dkv_ms, dq_ms=dq_ms,
-                          sum_ms=dkv_ms + dq_ms, rel_err_dq_dk_dv=errs,
+                          sum_ms=dkv_ms + dq_ms, rel_err_dq_dk_dv=errs, **fp64,
                           sha1=digest(torch, dq, dk, dv)))
     return dict(tree=tree, dtype=dtype_name, cases=cases)
 

@@ -1,6 +1,7 @@
-// bf16 device helpers of the segment-attention kernels (K9's bf16 forward
-// in segment_attention.cu, K9-dkv and K9-dq in segment_attention_bwd_bf16.cu):
-// cp.async copies, the visited-tile walk, bf16 packing, and Hopper's wgmma
+// Hopper device helpers of the segment-attention kernels (K9's bf16 forward
+// in segment_attention.cu, K9-dkv and K9-dq in segment_attention_bwd_bf16.cu
+// and segment_attention_bwd_tf32.cu): cp.async copies, the visited-tile
+// walk, bf16 packing and TF32 splitting, and Hopper's wgmma (bf16 and tf32)
 // with the swizzled shared-memory tiles it reads.
 #pragma once
 
@@ -11,21 +12,22 @@ namespace wct::hopper {
 
 using bf16 = __nv_bfloat16;
 
-// One [ROWS][D] bf16 tile in shared memory (ROWS 64: wgmma's M, and the N
-// of a 64 x 64 product): row-major within column blocks
-// of ROWB bytes a row (one block for D <= 64, two for D = 128), each block
-// swizzled as wgmma reads it: bits 4-6 (4-5, 4) of a byte offset XOR bits
-// 7-9 (7-8, 7) for the 128 (64, 32) byte swizzle. Tile bases are
-// 1024-byte aligned, the swizzles' period.
-template <int D>
+// One [R][COLS] tile of ELEM-byte elements (bf16 2, tf32 4) in shared
+// memory (R 64: wgmma's M, and the N of a 64 x 64 product): row-major
+// within column blocks of ROWB bytes a row (one block for rows of up to
+// 128 bytes, more for wider ones), each block swizzled as wgmma reads it:
+// bits 4-6 (4-5, 4) of a byte offset XOR bits 7-9 (7-8, 7) for the 128
+// (64, 32) byte swizzle. Tile bases are 1024-byte aligned, the swizzles'
+// period.
+template <int COLS, int ELEM = 2, int R = 64>
 struct Tile {
-  static constexpr int ROWS = 64;
-  static constexpr uint32_t ROWB = D * 2 < 128 ? D * 2 : 128;
+  static constexpr int ROWS = R;
+  static constexpr uint32_t ROWB = COLS * ELEM < 128 ? COLS * ELEM : 128;
   static constexpr uint32_t BLOCK = ROWS * ROWB;  // bytes of one column block
-  static constexpr uint32_t BYTES = ROWS * D * 2;
+  static constexpr uint32_t BYTES = ROWS * COLS * ELEM;
   static constexpr uint64_t MODE = ROWB == 128 ? 1 : ROWB == 64 ? 2 : 3;  // descriptor swizzle
 
-  // Byte offset of the 16-byte chunk c (elements 8c .. 8c + 7) of row r.
+  // Byte offset of the 16-byte chunk c (bytes 16c .. 16c + 15) of row r.
   __device__ static uint32_t chunk(int r, int c) {
     constexpr int PER = ROWB / 16;  // chunks of a row in one block
     const uint32_t o = (c / PER) * BLOCK + r * ROWB + (c % PER) * 16;
@@ -40,16 +42,17 @@ struct Tile {
   }
 
   // The tile at `base` as a K-major operand (rows are M or N), k-step ks:
-  // elements [16 ks, 16 ks + 16) of every row.
+  // bytes [32 ks, 32 ks + 32) of every row (16 bf16 or 8 tf32 values).
   __device__ static uint64_t k_major(uint32_t base, int ks) {
-    constexpr int PER = ROWB / 2;  // elements of a row in one block
-    return desc(base + (ks * 16 / PER) * BLOCK + (ks * 16 % PER) * 2, 16);
+    return desc(base + (ks * 32 / ROWB) * BLOCK + (ks * 32 % ROWB), 16);
   }
 
-  // The tile at `base` as an MN-major B operand: rows [16 kk, 16 kk + 16)
-  // are K, the 64 (or D) columns of column block cb are N. One swizzle atom
-  // spans N, so the leading offset is unused; it repeats the stride.
+  // The bf16 tile at `base` as an MN-major B operand: rows
+  // [16 kk, 16 kk + 16) are K, the 64 (or COLS) columns of column block cb
+  // are N. One swizzle atom spans N, so the leading offset is unused; it
+  // repeats the stride. (tf32 takes K-major operands only.)
   __device__ static uint64_t mn_major(uint32_t base, int kk, int cb) {
+    static_assert(ELEM == 2, "MN-major operands are bf16 only");
     return desc(base + cb * BLOCK + kk * 16 * ROWB, 8 * ROWB);
   }
 };
@@ -158,6 +161,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x N] (+)= A B over one 8-deep k-step of tf32 operands, fp32 sums;
+// A and B K-major in shared memory (descriptors a, b). N = 16, 32 or 64 by
+// the size of d; acc == 0 overwrites d. tf32 wgmma has no transpose bits.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : WG_OUT8(0)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24)
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[64 x N] += A B over one k-step: A [64 x 8] tf32 from registers (per
+// warp the mma.m16n8k8 tf32 A layout: rows g and g + 8, columns t and
+// t + 4 for lane 4 g + t), B K-major in shared memory. N = 16, 32 or 64 by
+// the size of d.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : WG_OUT8(0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 #undef WG_OUT8
 
 // 2^x, flushing results below 2^-126 to 0 (one MUFU instruction; exp2f
@@ -166,6 +236,27 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// x rounded to tf32 (10 mantissa bits; to nearest, ties away from zero),
+// as the bits of an fp32 value whose 13 low bits are zero.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// x as hi + lo, both tf32: hi = tf32(x), lo = tf32(x - hi), so that
+// |x - hi - lo| <= 2^-22 |x| for normal x. The three products
+// a_lo b_hi + a_hi b_lo + a_hi b_hi of two split values (3xTF32) then
+// carry fp32-class error. FINITE: x is known finite (P, dS); otherwise a
+// non-finite hi gets lo = 0, as the plain `tf32_split` of
+// kernels/segment_attention.py has it.
+template <bool FINITE>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  const bool finite = FINITE || (hi & 0x7F800000u) != 0x7F800000u;
+  lo = finite ? to_tf32(x - __uint_as_float(hi)) : 0u;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

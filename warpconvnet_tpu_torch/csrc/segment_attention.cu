@@ -41,7 +41,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include "hopper_bf16.cuh"
+#include "hopper.cuh"
 
 namespace {
 

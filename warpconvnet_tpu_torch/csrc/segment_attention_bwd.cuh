@@ -1,6 +1,7 @@
 // Shared by the segment-attention backward kernels K9-dkv and K9-dq: their
-// arguments, the rule that picks the visited tiles, and the bf16 launcher
-// (segment_attention_bwd_bf16.cu) that the fp32 file's C entry points call.
+// arguments, the rule that picks the visited tiles, and the fp32 and bf16
+// launchers (segment_attention_bwd_tf32.cu, segment_attention_bwd_bf16.cu)
+// that the C entry points of segment_attention_bwd.cu call.
 #pragma once
 
 #include <climits>
@@ -74,8 +75,10 @@ __device__ void mark_tiles(const int32_t* sown, int n_own, int own0, const int32
   __syncthreads();
 }
 
-// K9-dkv (dkv) or K9-dq on bf16 inputs for head dim d: the tensor-core
-// kernels of segment_attention_bwd_bf16.cu. Returns a CUDA error code.
+// K9-dkv (dkv) or K9-dq for head dim d on fp32 inputs (the 3xTF32 kernels
+// of segment_attention_bwd_tf32.cu) or bf16 inputs (the kernels of
+// segment_attention_bwd_bf16.cu). Return a CUDA error code.
+int launch_tf32(const Args& a, int b, int d, bool dkv, cudaStream_t stream);
 int launch_bf16(const Args& a, int b, int d, bool dkv, cudaStream_t stream);
 
 }  // namespace wct::seg_bwd

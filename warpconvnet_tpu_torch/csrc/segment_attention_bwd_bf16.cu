@@ -54,7 +54,7 @@
 #include <cuda_runtime.h>
 #include <type_traits>
 
-#include "hopper_bf16.cuh"
+#include "hopper.cuh"
 #include "segment_attention_bwd.cuh"
 
 namespace wct::seg_bwd {

@@ -10,8 +10,8 @@ matching kv row gives 0. q [B, Sq, H, D] and k, v [B, Skv, H, D] share fp32
 or bf16; out is [B, Sq, H, D] in that dtype. The forward can also return the
 rows' log-sum-exp ``lse`` [B, H, Sq] (fp32, natural log, +inf on a row that
 matches nothing), which the backward reads. Each wrapper runs its CUDA
-kernel (``csrc/segment_attention.cu``; the backward's fp32 kernels in
-``csrc/segment_attention_bwd.cu``, its bf16 ones on the tensor cores in
+kernel (``csrc/segment_attention.cu``; the backward's on the tensor
+cores, fp32 in 3xTF32 in ``csrc/segment_attention_bwd_tf32.cu``, bf16 in
 ``csrc/segment_attention_bwd_bf16.cu``) on CUDA tensors and its ``*_plain``
 version on CPU tensors, counts its launches in ``.launches``, and raises on
 what the kernel does not take. The kernels read q, k, v and dO through
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -152,13 +152,44 @@ def segment_attention_fwd(
     return (out, lse) if return_lse else out
 
 
-def _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk):
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) of fp32 ``x`` as the fp32 backward kernels split their
+    operands: hi is x rounded to TF32 (10 mantissa bits; to nearest, ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds), lo is x - hi rounded
+    the same way, so |x - hi - lo| <= 2^-22 |x| for normal x. A non-finite
+    hi is kept as it is, with lo 0. For tests: the kernels split on the
+    card."""
+    def rna(v):
+        r = ((v.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+        return torch.where(torch.isfinite(v), r, v)
+
+    hi = rna(x)
+    finite = torch.isfinite(hi)
+    lo = torch.where(finite, rna(torch.where(finite, x - hi, 0)), 0)
+    return hi, lo
+
+
+def tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3) -> torch.Tensor:
+    """a @ b of fp32 tensors as the fp32 backward kernels form it on the
+    tensor cores: from :func:`tf32_split`'s parts, a_lo b_hi + a_hi b_lo +
+    a_hi b_hi (``terms=3``, 3xTF32), or a_hi b_hi alone (``terms=1``, one
+    TF32 product). A product of two TF32 values is exact in fp32; the sums
+    are fp32 (on a card, only with TF32 matmuls off). For tests."""
+    a_hi, a_lo = tf32_split(a)
+    b_hi, b_lo = tf32_split(b)
+    if terms == 1:
+        return a_hi @ b_hi
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk, matmul=torch.matmul):
     """(dq, dk, dv) by the explicit formulas, ``chunk`` query rows at a
     time: P = exp(S - lse) over equal segments, dV = P^T dO, dP = dO V^T,
     dS = scale P (dP - di), dQ = dS K, dK = dS^T Q. As in the stock TPU
     kernels, P and dS (with the scale folded in) are rounded to the
     inputs' dtype before the products that read them (a no-op for fp32 and
-    float64); dP and the sums stay in the compute dtype. lse and di are
+    float64); dP and the sums stay in the compute dtype. ``matmul`` forms
+    the six products (S and the five of the backward). lse and di are
     [B, H, Sq]; the gradients come back contiguous in q's dtype."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     acc = _compute_dtype(q)
@@ -168,13 +199,13 @@ def _bwd_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale, chunk):
     for i in range(0, q.shape[1], chunk):
         rows = slice(i, i + chunk)
         pair = (seg_q[:, rows, None] == seg_kv[:, None, :])[:, None]  # [B, 1, c, Skv]
-        s = _scores(q[:, rows], k, scale)
+        s = matmul(qf[:, :, rows], kf.transpose(-1, -2)) * scale
         p = torch.where(pair, torch.exp(s - lse[:, :, rows, None].to(acc)), 0)
-        dv += p.to(q.dtype).to(acc).transpose(-1, -2) @ dof[:, :, rows]
-        dp = dof[:, :, rows] @ vf.transpose(-1, -2)
+        dv += matmul(p.to(q.dtype).to(acc).transpose(-1, -2), dof[:, :, rows])
+        dp = matmul(dof[:, :, rows], vf.transpose(-1, -2))
         ds = (p * (dp - di[:, :, rows, None].to(acc)) * scale).to(q.dtype).to(acc)
-        dq[:, :, rows] = ds @ kf
-        dk += ds.transpose(-1, -2) @ qf[:, :, rows]
+        dq[:, :, rows] = matmul(ds, kf)
+        dk += matmul(ds.transpose(-1, -2), qf[:, :, rows])
     return tuple(t.transpose(1, 2).to(q.dtype).contiguous() for t in (dq, dk, dv))
 
 
@@ -196,11 +227,14 @@ def segment_attention_bwd_plain(
     seg_kv: torch.Tensor,
     scale: Optional[float] = None,
     chunk: int = PLAIN_CHUNK,
+    matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of the segment attention whose forward gave ``o`` and
     ``lse``, for the output gradient ``do``: the explicit formulas
-    (:func:`_bwd_plain`) with di = rowsum(o * do), in one pass."""
-    return _bwd_plain(q, k, v, do, lse, rowsum_o_do(o, do), seg_q, seg_kv, scale, chunk)
+    (:func:`_bwd_plain`, products by ``matmul``; :func:`tf32_matmul`
+    emulates the fp32 kernels' arithmetic) with di = rowsum(o * do), in one
+    pass."""
+    return _bwd_plain(q, k, v, do, lse, rowsum_o_do(o, do), seg_q, seg_kv, scale, chunk, matmul)
 
 
 def segment_attention_bwd_dkv_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale=None,
