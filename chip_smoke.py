@@ -50,7 +50,8 @@ Phases (any failure exits non-zero):
      a grouped layout (segments of 1024 rows), cross attention (Sq 4096,
      Skv 40960) and D 16; each against its plain version, timed, with the
      share of kv tiles visited and one scaled_dot_product_attention per
-     scene on its valid rows as the library yardstick.
+     scene on its valid rows as the library yardstick; fp32 at the trunk
+     shape also against a float64 plain forward (out and lse).
  13. volt: Volt-s (3 -> 20 classes, dim 384, 6 heads, depth 12, bf16 conv
      compute, fp32 parameters, seeded weights, eval mode, token capacity
      40960) answers 3 requests, each a fresh bench scene pair whose maps
@@ -149,6 +150,11 @@ K9_PER_FORWARD = VOLT_DEPTH
 # kernel rounds the unnormalised probabilities to bf16 before P V, the plain
 # version the normalised ones, and both round the output.
 K9_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# fp32 K9 (3xTF32) against a float64 plain forward of the same inputs at
+# the trunk shape, relative Frobenius error of out and of lse (rows that
+# match something): tests/test_torch_gpu.py's K9_FP64_TOL, where a forward
+# of single TF32 products falls outside.
+K9_FP64_TOL = {"out": 1.2e-5, "lse": 2e-6}
 # Volt-s logits, kernel path against plain path (relative Frobenius): bf16
 # stem convs round differently where sums run in another order; the small
 # fp32 Volt runs the same sums in another order.
@@ -931,6 +937,24 @@ def sdpa_ms(q, k, v, nq, nkv):
     return cuda_ms(run, iters=3, warmup=1)
 
 
+def k9_fp64_errors(k9, q, k, v, seg_q, seg_kv):
+    """Relative Frobenius errors of fp32 K9's out and lse (rows that match
+    something) and of the fp32 plain forward's against a float64 plain
+    forward of the same inputs."""
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    plain = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, return_lse=True)
+    o64, lse64 = k9.segment_attention_fwd_plain(q.double(), k.double(), v.double(), seg_q,
+                                                seg_kv, chunk=512, return_lse=True)
+    finite = torch.isfinite(lse64)
+    check(torch.equal(torch.isfinite(lse), finite), "K9: lse +inf on other rows than float64's")
+
+    def rel(x, r):
+        return float((x.double() - r).norm() / r.norm())
+
+    return dict(out=rel(out, o64), lse=rel(lse[finite], lse64[finite]),
+                plain_out=rel(plain[0], o64), plain_lse=rel(plain[1][finite], lse64[finite]))
+
+
 def phase_k9(tokens):
     """K9 against its plain version at Volt-s's trunk shape (validity from
     the real token counts ``tokens``), fp32 and bf16, and on a grouped
@@ -963,7 +987,7 @@ def phase_k9(tokens):
         k32 = torch.randn((B, s, h, dd), generator=gen, device="cuda")
         v32 = torch.randn((B, s, h, dd), generator=gen, device="cuda")
         for dtype in (torch.float32, torch.bfloat16):
-            visited, tiles = k9.kv_tiles_visited(seg_q, seg_kv)
+            visited, tiles = k9.kv_tiles_visited(seg_q, seg_kv, k9.query_tile(dtype, dd))
             q, k, v = (t.to(dtype) for t in (q32, k32, v32))
             got = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
             ref = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv)
@@ -977,6 +1001,14 @@ def phase_k9(tokens):
             check(err <= tol and max_abs <= tol * scale,
                   f"K9 {name} {str(dtype)[6:]}: relative error {err:.3e}, max abs {max_abs:.3e} "
                   f"(largest {scale:.3e}) > {tol}")
+            fp64 = None
+            if name == "global" and dtype == torch.float32:
+                fp64 = k9_fp64_errors(k9, q, k, v, seg_q, seg_kv)
+                log(f"K9 {name} fp32 against float64: out {fp64['out']:.3e}, lse "
+                    f"{fp64['lse']:.3e} (fp32 plain {fp64['plain_out']:.3e}, "
+                    f"{fp64['plain_lse']:.3e}; bounds {K9_FP64_TOL})")
+                check(all(fp64[key] <= bound for key, bound in K9_FP64_TOL.items()),
+                      f"K9 {name} fp32: {fp64} against float64, bounds {K9_FP64_TOL}")
             fast = dtype == torch.bfloat16 or dd == 16 or name != "global"
             ms = cuda_ms(lambda: k9.segment_attention_fwd(q, k, v, seg_q, seg_kv),
                          iters=10 if fast else 3, warmup=1)
@@ -993,22 +1025,23 @@ def phase_k9(tokens):
                 f"visited {visited}/{tiles} ({visited / tiles:.2%}); card {card_state()}")
             if name == "global":
                 res = dict(max_abs_err=max_abs, rel_err=err, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bd[0], bound_by=bd[1], library_ms=lib_ms)
+                           bound_ms=bd[0], bound_by=bd[1], library_ms=lib_ms,
+                           kv_tiles_visited=visited / tiles)
                 if dtype == torch.float32:
                     entry = dict(
                         name="segment_attention_fwd", route="cuda",
-                        source="warpconvnet_tpu_torch/csrc/segment_attention.cu",
+                        source="warpconvnet_tpu_torch/csrc/segment_attention_fwd_tf32.cu",
                         replaces="warpconvnet_tpu/nn/functional/flash_attention.py:147",
                         shape=f"B={B} S={s} H={h} D={dd} fp32, validity {tokens} "
                               "(Volt-s trunk; the main path's dtype)",
-                        **res)
+                        rel_err_fp64=fp64, **res)
                     # One fp32 peak in every bound_ms: the tensor cores' 3xTF32
                     # rate, as for K9-dkv / K9-dq; the FMA bound beside it.
                     bd = bound(nbytes(q, k, v, seg_q, seg_kv, got), flops, peak=TF32X3_FLOPS)
                     entry.update(bound_ms=bd[0], bound_by=bd[1], fma_bound_ms=res["bound_ms"])
                 else:
-                    entry["bf16"] = res
-                res["kv_tiles_visited"] = visited / tiles
+                    entry["bf16"] = dict(
+                        res, source="warpconvnet_tpu_torch/csrc/segment_attention_fwd_bf16.cu")
     return entry
 
 

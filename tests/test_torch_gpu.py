@@ -703,6 +703,130 @@ def test_k9_bwd_gives_the_same_bits_twice(cuda, layout, dtype):
         assert torch.equal(a, b)
 
 
+# fp32 K9 (3xTF32 on the tensor cores) against a float64 plain forward on
+# the same inputs: relative Frobenius error of out, and of lse over the rows
+# that match something. On an H100 the kernel read out 2.6e-7 to 3.1e-6
+# and lse 6.0e-8 to 5.1e-7 (D 16-128; the layouts below), the IEEE fp32
+# plain forward 1.7e-7 to 2.0e-6 and 3.0e-8 to 8.4e-8, a forward of single
+# TF32 products (tf32_matmul(terms=1)) 4.8e-4 to 9.1e-4 and 1.2e-5 to
+# 9.3e-5. Each bound sits 4x above the kernel's largest reading, out's 40x
+# and lse's 6x below the 1xTF32 forward's smallest. A kernel whose tensor
+# cores carry out over the whole walk read out 5.2e-5 to 5.8e-5 on the
+# "long" layout (D 16-128).
+K9_FP64_TOL = {"out": 1.2e-5, "lse": 2e-6}
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "empty", "uniform", "long"])
+def test_k9_fp32_is_fp32_accurate(cuda, layout, d):
+    """fp32 K9's out and lse against a float64 plain forward within
+    K9_FP64_TOL, and a forward of single TF32 products outside it. The
+    "long" layout (8192 rows in one segment) fails a kernel whose tensor
+    cores carry out over the whole walk. Prints the readings of the kernel,
+    the IEEE fp32 plain forward, the plain forward with emulated 3xTF32
+    products and the 1xTF32 one (pytest -rP)."""
+    import functools
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert torch.get_float32_matmul_precision() == "highest"
+    q, k, v, _, seg_q, seg_kv = _k9_bwd_case(cuda, layout, torch.float32, d)
+    got = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    ref = k9.segment_attention_fwd_plain(q.double(), k.double(), v.double(), seg_q, seg_kv,
+                                         return_lse=True)
+    args = (q, k, v, seg_q, seg_kv)
+    fp32 = k9.segment_attention_fwd_plain(*args, return_lse=True)
+    three = k9.segment_attention_fwd_plain(*args, return_lse=True, matmul=k9.tf32_matmul)
+    one = k9.segment_attention_fwd_plain(*args, return_lse=True,
+                                         matmul=functools.partial(k9.tf32_matmul, terms=1))
+    torch.cuda.synchronize()
+    finite = torch.isfinite(ref[1])
+    assert torch.equal(torch.isfinite(got[1]), finite)
+    assert bool((got[1][~finite] == float("inf")).all())
+    assert bool((got[0].transpose(1, 2)[~finite] == 0).all())
+
+    def rel64(x, r, mask=None):
+        x = x.double()
+        if mask is not None:
+            x, r = x[mask], r[mask]
+        return float((x - r).norm() / r.norm())
+
+    for i, label in enumerate(("out", "lse")):
+        mask = finite if label == "lse" else None
+        err, one_err = rel64(got[i], ref[i], mask), rel64(one[i], ref[i], mask)
+        print(f"{layout} D {d} {label} against float64: kernel {err:.3e}, fp32 plain "
+              f"{rel64(fp32[i], ref[i], mask):.3e}, 3xTF32 plain "
+              f"{rel64(three[i], ref[i], mask):.3e}, 1xTF32 plain {one_err:.3e}")
+        assert err <= K9_FP64_TOL[label] < one_err
+
+
+# bf16 K9 against a plain online forward that walks the kv tiles in the
+# kernel's order and rounds the unnormalised P = exp(S - running max) to
+# bf16 before P V, as the stock TPU kernel does (relative Frobenius error
+# of out): on an H100 the kernel read 0 to 8.0e-5 (D 16-128; global,
+# grouped and uniform layouts), and 1.51e-3 to 1.69e-3 against the same
+# forward with P kept in fp32. The bound sits 5x above the first and 3.8x
+# below the second.
+K9_STOCK_TOL = 4e-4
+
+
+def _online_fwd_plain(q, k, v, seg_q, seg_kv, round_p):
+    """The forward as an online softmax over KV_TILE-row kv tiles in order,
+    fp32 (bf16 inputs widened): per tile m' = max(m, rowmax S),
+    alpha = exp(m - m'), l = alpha l + rowsum P, O = alpha O + P V with
+    P = exp(S - m'), rounded to bf16 before P V when ``round_p``; out =
+    O / l in q's dtype."""
+    scale = q.shape[-1] ** -0.5
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))  # [B, H, S, D]
+    b, h, sq, d = qf.shape
+    m = torch.full((b, h, sq, 1), -float("inf"), device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    o = torch.zeros((b, h, sq, d), device=q.device)
+    for j in range(0, kf.shape[2], k9.KV_TILE):
+        cols = slice(j, j + k9.KV_TILE)
+        pair = (seg_q[:, :, None] == seg_kv[:, None, cols])[:, None]
+        s = torch.where(pair, qf @ kf[:, :, cols].transpose(-1, -2) * scale, -float("inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_use = torch.where(torch.isneginf(m_new), 0, m_new)
+        alpha = torch.exp(m - m_use)
+        p = torch.exp(s - m_use)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        pv = p.to(torch.bfloat16).float() if round_p else p
+        o = o * alpha + pv @ vf[:, :, cols]
+        m = m_new
+    out = torch.where(l > 0, o / l, 0)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "uniform"])
+def test_k9_bf16_rounds_p_where_the_stock_kernel_does(cuda, layout, d):
+    """bf16 K9 within K9_STOCK_TOL of the online plain forward that rounds
+    P as the stock kernel does, and farther than that from the one that
+    keeps P in fp32. Prints the readings (pytest -rP)."""
+    q, k, v, _, seg_q, seg_kv = _k9_bwd_case(cuda, layout, torch.bfloat16, d)
+    got = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+    ref = _online_fwd_plain(q, k, v, seg_q, seg_kv, round_p=True)
+    wide = _online_fwd_plain(q, k, v, seg_q, seg_kv, round_p=False)
+    torch.cuda.synchronize()
+    err, wide_err = _rel(got, ref), _rel(got, wide)
+    print(f"{layout} D {d} out: kernel against P rounded {err:.3e}, against P in fp32 "
+          f"{wide_err:.3e}; the two plain forwards apart {_rel(wide, ref):.3e}")
+    assert err <= K9_STOCK_TOL < wide_err
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["global", "grouped", "empty"])
+def test_k9_gives_the_same_bits_twice(cuda, layout, dtype):
+    """K9 owns its output rows and uses no atomics: a second run on the
+    same inputs gives the same bits of out and lse."""
+    q, k, v, _, seg_q, seg_kv = _k9_bwd_case(cuda, layout, dtype, 64)
+    first = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    second = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 def test_k9_bwd_reads_strided_qkv(cuda):
     """Q, K and V as slices of one [B, S, 3, H, D] projection and a strided
     dO give what contiguous copies give."""

@@ -3,18 +3,33 @@
 against JAX ``segment_attention(..., impl="xla")``, the path JAX's own tests
 run on the CPU. Layouts: global attention with pads, grouped (patch)
 segments, cross attention with separate ids, rows that match no kv row.
-Tolerances: fp32 1e-5 (rtol and atol), bf16 2e-2."""
+Tolerances: fp32 1e-5 (rtol and atol), bf16 2e-2. The plain version's out
+and lse are also held against ``impl="flash"``: the stock Pallas TPU forward
+kernel itself, run in TPU interpret mode (see ``STOCK_TOL``)."""
+
+from unittest import mock
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
+from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas.ops.tpu import flash_attention as stock
 
 from warpconvnet_tpu.nn.functional import flash_attention as jfa
 from warpconvnet_tpu_torch.kernels import segment_attention as k9
 from warpconvnet_tpu_torch.nn.functional import flash_attention as tfa
 
 TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+# The plain forward against the stock Pallas forward (interpret mode),
+# relative Frobenius error on valid rows (B 2, S 300, H 2, D 64). out: fp32
+# measured 1.3e-7, held to 1e-5; bf16 measured 7.0e-5 (global) and 1.4e-6
+# (segments of 64 rows), held to 1e-3: the stock rounds the unnormalised
+# probabilities to bf16 before P V, the plain version the normalised ones;
+# a forward that keeps them in fp32 is 2.7e-3 away. lse (fp32 for both
+# dtypes): measured 3.7e-8 at most, held to 1e-5.
+STOCK_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+STOCK_LSE_TOL = 1e-5
 _JDTYPE = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
@@ -75,6 +90,51 @@ def test_plain_matches_jax(layout, d, dtype):
     np.testing.assert_allclose(got.float().numpy(), ref, **TOL[dtype])
     if layout == "unmatched_rows":
         assert np.all(got.float().numpy()[:, ::7] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["global", "grouped"])
+def test_plain_matches_the_stock_pallas_forward(layout, dtype):
+    """The plain forward's out and lse against ``segment_attention(...,
+    impl="flash")`` in TPU interpret mode: the stock K9 Pallas kernel (jax
+    ``flash_attention.py`` ``_flash_attention_kernel``), whose lse is read
+    from the residuals it saves for the backward (m + log l). B 2, S 300
+    (280 and 170 valid rows), H 2, D 64; global attention over the valid
+    rows, or segments of 64 rows. Compared on valid rows: the stock pads
+    the sequence with rows of its own."""
+    b, s, h, d = 2, 300, 2, 64
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal((b, s, h, d)).astype(np.float32) for _ in range(3))
+    q = 2 * q
+    valid = np.arange(s)[None] < np.array([[280], [170]])
+    group = np.arange(s)[None] // 64 if layout == "grouped" else np.zeros((1, s), np.int64)
+    seg = np.where(valid, group, int(jfa._PAD_SEGMENT)).astype(np.int32)
+    saved = {}
+
+    def with_lse(q_, k_, v_, ab=None, segment_ids=None, *, causal=False, sm_scale=1.0,
+                 block_sizes=None, debug=False):
+        o, l, m = stock._flash_attention(q_, k_, v_, ab, segment_ids, True, causal, sm_scale,
+                                         block_sizes, debug)
+        saved["lse"] = m + jnp.log(l)
+        return o
+
+    jd = _JDTYPE[dtype]
+    with pltpu.force_tpu_interpret_mode(), mock.patch.object(stock, "flash_attention", with_lse):
+        ref = jfa.segment_attention(*(jnp.asarray(x, jd) for x in (q, k, v)), jnp.asarray(seg),
+                                    impl="flash")
+    ref = np.asarray(ref.astype(jnp.float32))
+    ref_lse = np.asarray(saved["lse"])[:, :, :s].transpose(0, 2, 1)  # [B, S, H]
+    tseg = _t(seg, torch.int32)
+    out, lse = k9.segment_attention_fwd_plain(_t(q, dtype), _t(k, dtype), _t(v, dtype), tseg,
+                                              tseg, return_lse=True)
+    assert out.dtype == dtype and lse.dtype == torch.float32
+
+    def rel(got, want):
+        got, want = np.asarray(got, np.float64)[valid], np.asarray(want, np.float64)[valid]
+        return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+    assert rel(out.float().numpy(), ref) <= STOCK_TOL[dtype]
+    assert rel(lse.numpy().transpose(0, 2, 1), ref_lse) <= STOCK_LSE_TOL
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,11 +1,13 @@
-"""The arithmetic of the fp32 segment-attention backward kernels (K9-dkv,
+"""The arithmetic of the fp32 segment-attention kernels (K9, K9-dkv,
 K9-dq), held here on the CPU: each fp32 operand split into two TF32 values
 (``tf32_split``, the kernels' ``cvt.rna.tf32.f32``) and each product formed
 from three TF32 products (``tf32_matmul``, 3xTF32). The split against an
 independent float64 rounding; the 3xTF32 product against float64, beside
-an fp32 product and a single TF32 product; and a backward whose six
-products run as emulated 3xTF32 against JAX's fp32 backward, at the fp32
-tolerance of ``tests/test_torch_segment_attention_bwd.py``."""
+an fp32 product and a single TF32 product; a backward whose six products
+run as emulated 3xTF32 against JAX's fp32 backward, at the fp32 tolerance
+of ``tests/test_torch_segment_attention_bwd.py``; and a forward whose two
+products do (the fp32 K9's arithmetic) against JAX's fp32 forward, at the
+fp32 tolerance of ``tests/test_torch_segment_attention.py``."""
 
 import functools
 
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from tests.test_torch_segment_attention import _t
+from tests.test_torch_segment_attention import TOL as FWD_TOL
+from tests.test_torch_segment_attention import _jax_ref, _layouts, _qkv, _t
 from tests.test_torch_segment_attention_bwd import TOL, _case, _jax_grads
 from warpconvnet_tpu_torch.kernels import segment_attention as k9
 
@@ -94,3 +97,21 @@ def test_3xtf32_backward_matches_jax_fp32_backward():
         np.testing.assert_allclose(g.numpy(), r, **TOL)
     one = k9.segment_attention_bwd_plain(*args, matmul=functools.partial(k9.tf32_matmul, terms=1))
     assert not all(np.allclose(g.numpy(), r, **TOL) for g, r in zip(one, ref))
+
+
+@pytest.mark.parametrize("layout", ["grouped", "unmatched_rows"])
+def test_3xtf32_forward_matches_jax_fp32_forward(layout):
+    """The plain forward with its two products (S = Q K^T, P V) as emulated
+    3xTF32, the fp32 K9's arithmetic, matches JAX's fp32 forward within
+    the fp32 1e-5 of ``tests/test_torch_segment_attention.py``; with one
+    TF32 product each it does not (B 2, H 3, D 64; S 100, or Sq 70 and
+    Skv 130 with query rows that match nothing)."""
+    sq, skv = (100, 100) if layout == "grouped" else (70, 130)
+    q, k, v = _qkv(64, 2, sq, skv, 3, 64)
+    sq_ids, skv_ids = _layouts(sq, skv, seed=64)[layout]
+    ref = _jax_ref(q, k, v, sq_ids, skv_ids, torch.float32)
+    args = (_t(q), _t(k), _t(v), _t(sq_ids, torch.int32), _t(skv_ids, torch.int32))
+    got = k9.segment_attention_fwd_plain(*args, matmul=k9.tf32_matmul)
+    np.testing.assert_allclose(got.numpy(), ref, **FWD_TOL[torch.float32])
+    one = k9.segment_attention_fwd_plain(*args, matmul=functools.partial(k9.tf32_matmul, terms=1))
+    assert not np.allclose(one.numpy(), ref, **FWD_TOL[torch.float32])

@@ -1,9 +1,10 @@
-"""Time the segment-attention backward kernels K9-dkv and K9-dq on the card,
-for one checkout of the port or several in turn.
+"""Time the segment-attention kernels K9 (forward), K9-dkv and K9-dq on the
+card, for one checkout of the port or several in turn.
 
     python3 tools/time_k9_bwd.py                         # this checkout, bf16
     python3 tools/time_k9_bwd.py --dtype fp32
     python3 tools/time_k9_bwd.py --tree A --tree B --tree B --tree A
+    python3 tools/time_k9_bwd.py --forward-only          # K9 alone
 
 Each ``--tree`` is the root of a checkout (the directory that holds
 ``warpconvnet_tpu_torch``); the trees run one after another, each in its
@@ -14,11 +15,12 @@ segments of 1024 rows at that shape, and the same at D 16 with 4 heads.
 Inputs come from a seeded generator on the card, dO is zero on pad rows.
 
 Prints the card's name and power limit, then one JSON line per tree: per
-layout, the mean CUDA-event time of each kernel, the relative Frobenius
-error of dq, dk and dv against the plain backward (with ``--dtype fp32``
-also against a float64 plain backward of float64 inputs, beside the fp32
-plain backward's), and a SHA-1 of the gradients' bytes (equal digests: the
-two trees computed the same bits).
+layout, the mean CUDA-event time of each kernel (K9 with lse, as training
+runs it), the relative Frobenius error of dq, dk and dv against the plain
+backward (with ``--dtype fp32`` also of out, lse, dq, dk and dv against a
+float64 plain forward and backward of float64 inputs, beside the fp32
+plain versions'), and SHA-1s of out and lse and of the gradients' bytes
+(equal digests: the two trees computed the same bits).
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def digest(torch, *tensors):
     return h.hexdigest()
 
 
-def run_tree(tree, dtype_name):
+def run_tree(tree, dtype_name, forward_only):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from warpconvnet_tpu_torch.kernels import segment_attention as k9
@@ -76,6 +78,29 @@ def run_tree(tree, dtype_name):
         do = (torch.randn((B, S, h, d), generator=gen, device="cuda") * valid[..., None, None]
               ).to(dtype)
         out, lse = k9.segment_attention_fwd(q, k, v, seg, seg, return_lse=True)
+        heavy = dtype == torch.float32 and name == "global"
+        n = 2 if heavy else ITERS
+        fwd_ms = cuda_ms(torch, lambda: k9.segment_attention_fwd(q, k, v, seg, seg,
+                                                                  return_lse=True), n)
+        case = dict(layout=name, heads=h, d=d, fwd_ms=fwd_ms, fwd_sha1=digest(torch, out, lse))
+        if dtype == torch.float32:
+            x64 = [t.double() for t in (q, k, v)]
+            o64, lse64 = k9.segment_attention_fwd_plain(*x64, seg, seg, chunk=512,
+                                                        return_lse=True)
+            o32, lse32 = k9.segment_attention_fwd_plain(q, k, v, seg, seg, return_lse=True)
+            finite = torch.isfinite(lse64)
+
+            def fwd64(o, l):
+                return [float((o.double() - o64).norm() / o64.norm()),
+                        float((l[finite].double() - lse64[finite]).norm()
+                              / lse64[finite].norm())]
+
+            case.update(fwd_rel_err_fp64_out_lse=fwd64(out, lse),
+                        fwd_plain_rel_err_fp64_out_lse=fwd64(o32, lse32))
+            del o32, lse32
+        if forward_only:
+            cases.append(case)
+            continue
         di = k9.rowsum_o_do(out, do)
         args = (q, k, v, do, lse, di, seg, seg)
         dk, dv = k9.segment_attention_bwd_dkv(*args)
@@ -85,9 +110,6 @@ def run_tree(tree, dtype_name):
                 for g, r in zip((dq, dk, dv), ref)]
         fp64 = {}
         if dtype == torch.float32:
-            x64 = [t.double() for t in (q, k, v)]
-            o64, lse64 = k9.segment_attention_fwd_plain(*x64, seg, seg, chunk=512,
-                                                        return_lse=True)
             ref64 = k9.segment_attention_bwd_plain(*x64, o64, lse64, do.double(), seg, seg,
                                                    chunk=512)
             del x64, o64, lse64
@@ -99,13 +121,11 @@ def run_tree(tree, dtype_name):
                         plain_rel_err_fp64_dq_dk_dv=rel64(ref))
             del ref64
         del ref
-        heavy = dtype == torch.float32 and name == "global"
-        n = 2 if heavy else ITERS
         dkv_ms = cuda_ms(torch, lambda: k9.segment_attention_bwd_dkv(*args), n)
         dq_ms = cuda_ms(torch, lambda: k9.segment_attention_bwd_dq(*args), n)
-        cases.append(dict(layout=name, heads=h, d=d, dkv_ms=dkv_ms, dq_ms=dq_ms,
-                          sum_ms=dkv_ms + dq_ms, rel_err_dq_dk_dv=errs, **fp64,
-                          sha1=digest(torch, dq, dk, dv)))
+        case.update(dkv_ms=dkv_ms, dq_ms=dq_ms, sum_ms=dkv_ms + dq_ms, rel_err_dq_dk_dv=errs,
+                    **fp64, sha1=digest(torch, dq, dk, dv))
+        cases.append(case)
     return dict(tree=tree, dtype=dtype_name, cases=cases)
 
 
@@ -114,10 +134,11 @@ def main() -> int:
     parser.add_argument("--tree", action="append", default=[],
                         help="root of a checkout; repeat to run several in turn")
     parser.add_argument("--dtype", choices=("bf16", "fp32"), default="bf16")
+    parser.add_argument("--forward-only", action="store_true", help="time K9 alone")
     parser.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.one:  # one tree, in this process
-        print(json.dumps(run_tree(args.tree[0], args.dtype)), flush=True)
+        print(json.dumps(run_tree(args.tree[0], args.dtype, args.forward_only)), flush=True)
         return 0
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
@@ -125,7 +146,8 @@ def main() -> int:
     rc = 0
     for tree in trees:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "--one", "--tree", tree,
-                              "--dtype", args.dtype]).returncode
+                              "--dtype", args.dtype]
+                             + (["--forward-only"] if args.forward_only else [])).returncode
     return rc
 
 

@@ -1,8 +1,8 @@
-// Hopper device helpers of the segment-attention kernels (K9's bf16 forward
-// in segment_attention.cu, K9-dkv and K9-dq in segment_attention_bwd_bf16.cu
-// and segment_attention_bwd_tf32.cu): cp.async copies, the visited-tile
-// walk, bf16 packing and TF32 splitting, and Hopper's wgmma (bf16 and tf32)
-// with the swizzled shared-memory tiles it reads.
+// Hopper device helpers of the segment-attention kernels (K9 in
+// segment_attention_fwd_{tf32,bf16}.cu, K9-dkv and K9-dq in
+// segment_attention_bwd_{tf32,bf16}.cu): cp.async copies, the visited-tile
+// walk, mbarriers, bf16 packing and TF32 splitting, and Hopper's wgmma
+// (bf16 and tf32) with the swizzled shared-memory tiles it reads.
 #pragma once
 
 #include <cstdint>
@@ -84,6 +84,32 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// An mbarrier in shared memory (its address): init with the arrivals a
+// phase takes; arrive (release); wait until the phase of the given parity
+// has completed (acquire).
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// One arrival on the mbarrier once this thread's earlier cp.async copies
+// have landed (counted among the phase's arrivals).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
 // Makes this thread's shared-memory writes visible to wgmma (the async proxy).
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -157,6 +183,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
       "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 64] += A B over one k-step: A [64 x 16] from registers (bf16
+// fragments, the mma.m16n8k16 A layout per warp), B K-major in shared
+// memory (its rows are N).
+__device__ __forceinline__ void wgmma_rs_kmajor(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : WG_OUT8(0), WG_OUT8(8), WG_OUT8(16), WG_OUT8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }

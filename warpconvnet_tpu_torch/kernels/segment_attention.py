@@ -10,12 +10,13 @@ matching kv row gives 0. q [B, Sq, H, D] and k, v [B, Skv, H, D] share fp32
 or bf16; out is [B, Sq, H, D] in that dtype. The forward can also return the
 rows' log-sum-exp ``lse`` [B, H, Sq] (fp32, natural log, +inf on a row that
 matches nothing), which the backward reads. Each wrapper runs its CUDA
-kernel (``csrc/segment_attention.cu``; the backward's on the tensor
-cores, fp32 in 3xTF32 in ``csrc/segment_attention_bwd_tf32.cu``, bf16 in
-``csrc/segment_attention_bwd_bf16.cu``) on CUDA tensors and its ``*_plain``
-version on CPU tensors, counts its launches in ``.launches``, and raises on
-what the kernel does not take. The kernels read q, k, v and dO through
-their row strides (no copy).
+kernel on CUDA tensors, all on the tensor cores, fp32 in 3xTF32
+(``csrc/segment_attention_fwd_tf32.cu``, ``csrc/segment_attention_bwd_tf32.cu``),
+bf16 in ``csrc/segment_attention_fwd_bf16.cu`` and
+``csrc/segment_attention_bwd_bf16.cu`` (the forward's entry point is
+``csrc/segment_attention.cu``), and its ``*_plain`` version on CPU tensors,
+counts its launches in ``.launches``, and raises on what the kernel does not
+take. The kernels read q, k, v and dO through their row strides (no copy).
 """
 
 from __future__ import annotations
@@ -27,11 +28,10 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from warpconvnet_tpu_torch.kernels import _build
-from warpconvnet_tpu_torch.nn.functional.attention import masked_sdpa
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)  # csrc/segment_attention.cu instantiates these
-QUERY_TILE = 128  # query rows per block of the kernel
+QUERY_TILE = 128  # query rows per block of the fp32 forward at D <= 64
 KV_TILE = 64  # kv rows per tile
 PLAIN_CHUNK = 1024
 
@@ -39,13 +39,6 @@ PLAIN_CHUNK = 1024
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:
     """fp32 for fp32 and bf16 inputs, float64 for float64 ones."""
     return torch.promote_types(x.dtype, torch.float32)
-
-
-def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
-    """scale * q k^T per head: q [B, c, H, D], k [B, Skv, H, D] ->
-    [B, H, c, Skv] in the compute dtype."""
-    acc = _compute_dtype(q)
-    return (q.transpose(1, 2).to(acc) @ k.transpose(1, 2).to(acc).transpose(-1, -2)) * scale
 
 
 def segment_attention_fwd_plain(
@@ -57,20 +50,28 @@ def segment_attention_fwd_plain(
     scale: Optional[float] = None,
     chunk: int = PLAIN_CHUNK,
     return_lse: bool = False,
+    matmul: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] = torch.matmul,
 ):
-    """:func:`masked_sdpa` with the pair mask ``seg_q[:, i] == seg_kv[:, j]``,
-    ``chunk`` query rows at a time, so that the fp32 scores take
-    B * H * chunk * Skv floats rather than B * H * Sq * Skv. With
-    ``return_lse`` also the rows' log-sum-exp [B, H, Sq] (+inf where a row
-    matches nothing), in the compute dtype."""
+    """``nn.functional.attention.masked_sdpa`` with the pair mask
+    ``seg_q[:, i] == seg_kv[:, j]``, ``chunk`` query rows at a time, so that
+    the fp32 scores take B * H * chunk * Skv floats rather than
+    B * H * Sq * Skv (the same values as one call). ``matmul``
+    forms its two products, S = Q K^T and P V (:func:`tf32_matmul`
+    emulates the fp32 kernel's arithmetic). With ``return_lse`` also the
+    rows' log-sum-exp [B, H, Sq] (+inf where a row matches nothing), in the
+    compute dtype."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    acc = _compute_dtype(q)
+    kf, vf = (t.transpose(1, 2).to(acc) for t in (k, v))  # [B, H, Skv, D]
     outs, lses = [], []
     for i in range(0, q.shape[1], chunk):
-        pair = seg_q[:, i:i + chunk, None] == seg_kv[:, None, :]
-        outs.append(masked_sdpa(q[:, i:i + chunk], k, v, None, None, pair, scale))
+        pair = (seg_q[:, i:i + chunk, None] == seg_kv[:, None, :])[:, None]  # [B, 1, c, Skv]
+        s = matmul(q[:, i:i + chunk].transpose(1, 2).to(acc), kf.transpose(-1, -2)) * scale
+        probs = torch.softmax(torch.where(pair, s, -1e30), dim=-1)
+        probs = torch.where(pair.any(dim=-1, keepdim=True), probs, 0)
+        outs.append(matmul(probs.to(v.dtype).to(acc), vf).to(v.dtype).transpose(1, 2))
         if return_lse:
-            s = _scores(q[:, i:i + chunk], k, scale).masked_fill(~pair[:, None], -math.inf)
-            lse = torch.logsumexp(s, dim=-1)
+            lse = torch.logsumexp(s.masked_fill(~pair, -math.inf), dim=-1)
             lses.append(torch.where(torch.isneginf(lse), math.inf, lse))
     out = torch.cat(outs, dim=1) if outs else torch.empty_like(q)
     out = out.to(q.dtype)
@@ -321,14 +322,22 @@ def segment_attention_bwd(
     return segment_attention_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, scale), dk, dv
 
 
-def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor) -> Tuple[int, int]:
+def query_tile(dtype: torch.dtype, d: int) -> int:
+    """Query rows per block of the forward kernel: fp32 two warpgroups of
+    64 rows (one at D 128), bf16 three (two at D 128)."""
+    if dtype == torch.bfloat16:
+        return 3 * 64 if d <= 64 else 2 * 64
+    return QUERY_TILE if d <= 64 else 64
+
+
+def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor,
+                     qt: int = QUERY_TILE) -> Tuple[int, int]:
     """(kv tiles the kernel visits, kv tiles in all) over every (scene,
-    query tile), by the kernel's rule: a kv tile is visited when one of its
-    rows has a segment inside the query tile's [min, max] range. Per head;
-    plain PyTorch, for reporting."""
+    query tile of ``qt`` rows), by the kernel's rule: a kv tile is visited
+    when one of its rows has a segment inside the query tile's [min, max]
+    range. Per head; plain PyTorch, for reporting."""
     b, sq = seg_q.shape
     skv = seg_kv.shape[1]
-    qt = QUERY_TILE
     nq, nkv = -(-sq // qt), -(-skv // KV_TILE)
     big, small = torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
     sqp = torch.nn.functional.pad(seg_q, (0, nq * qt - sq), value=big).reshape(b, nq, qt)
