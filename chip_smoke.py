@@ -11,7 +11,11 @@ Phases (any failure exits non-zero):
      power limit as nvidia-smi reports them.
   2. build: compiles the CUDA kernels from ``warpconvnet_tpu_torch/csrc``.
   3. K1: the L0 3^3 kernel map of one bench scene pair (B=2,
-     n_cap=131072), CUDA kernel against its plain version: equal tables.
+     n_cap=131072) and its 7^3 self-map (the ConvNeXt block's), CUDA kernel
+     against its plain version: equal tables; each timed against the plain
+     version, torch.searchsorted of the formed queries and its bound, with
+     the share of tiles walked in device memory (window wider than shared
+     memory).
   4. K2: the implicit-GEMM forward on that map at C 32->32 and 256->256 in
      fp32 and bf16, CUDA kernel against its plain version.
   5. slice: MinkUNet18 (3 -> 20 classes, bf16 compute, fp32 params, seeded
@@ -31,7 +35,7 @@ Phases (any failure exits non-zero):
      gradients and parameters against the plain path; a small fp32 step
      checks the kernels tightly. Logs step ms, points/s and peak memory.
   8. K5: K1's kernel on offsets that form no grid (the 7-point cross), the
-     contract of the JAX package's plain probe: equal tables.
+     contract of the JAX package's plain probe: equal tables, timed as in 3.
   9. depthwise kernels: K6 forward on the bench pair's 7^3 map at C 96
      (bf16, fp32) and on the L0 3^3 map at C 96 and 384; K6 as dgrad and K7
      on the L0 -> L1 2^3 parity map and its reverse; K8 on the 7^3 and 3^3
@@ -213,6 +217,38 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn``'s kernels a call, from a profiler trace of
+    ``iters`` back-to-back calls. A kernel of tens of microseconds finishes
+    before the host has launched the next, so ``cuda_ms`` times the host's
+    launch rate there; the trace times the kernels themselves."""
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    # The trace may drop an event: a mean per kernel name, each kernel of
+    # ``fn`` launched once a call.
+    by_name = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            by_name.setdefault(e["name"], []).append(e["dur"])
+    check(by_name != {}, "device_ms: no kernel in the trace")
+    return sum(sum(d) / len(d) for d in by_name.values()) / 1e3
+
+
 def bound(nbytes: float, flops: float = 0.0, dtype=torch.float32, peak=None):
     """(least ms the card could take, "bytes" or "operations"): the larger
     of the bytes over the HBM rate and the operations over ``peak`` (by
@@ -220,6 +256,15 @@ def bound(nbytes: float, flops: float = 0.0, dtype=torch.float32, peak=None):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@functools.cache
+def card_name() -> str:
+    """The card's name and power limit, as nvidia-smi reports them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
 
 
 def card_state() -> str:
@@ -236,9 +281,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def make_batch(seed: int, n_cap: int, device, channels: int = 3, scale: float = 1.0):
-    """The bench's input: B surface scenes, ``channels`` random feature
-    channels (times ``scale``)."""
+def make_batch(seed: int, n_cap: int, device, channels: int = 3, scale: float = 1.0,
+               coord_range: int = 512):
+    """The bench's input: B surface scenes on ``coord_range``^2 columns,
+    ``channels`` random feature channels (times ``scale``)."""
     from warpconvnet_tpu_torch.geometry.voxels import Voxels
     from warpconvnet_tpu_torch.ops.keys import PAD_COORD
     from warpconvnet_tpu_torch.utils.scenes import make_surface_scene
@@ -248,7 +294,7 @@ def make_batch(seed: int, n_cap: int, device, channels: int = 3, scale: float = 
     feats = np.zeros((B, n_cap, channels), np.float32)
     nv = np.zeros((B,), np.int32)
     for i in range(B):
-        c = make_surface_scene(rng, n_cap)
+        c = make_surface_scene(rng, n_cap, coord_range=coord_range)
         nv[i] = len(c)
         coords[i, : len(c)] = c
         feats[i, : len(c)] = rng.standard_normal((len(c), channels)) * scale
@@ -313,76 +359,75 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return float((got - ref).norm() / ref.norm().clamp(min=1e-30))
 
 
-def phase_k1(vox):
+def probe_case(vox, offsets, label):
+    """K1 on the bench pair's self-map under ``offsets``: the table against
+    the plain version (bit-equal), then the kernel, the plain version and
+    torch.searchsorted of the formed query keys timed back to back with
+    CUDA events as every kernel here is (the kernel and torch.searchsorted
+    also from a profiler trace, ``device_ms``: a kernel shorter than its
+    launch is timed at the host's launch rate by events), the bound, and the
+    share of tiles whose window of keys did not fit in shared memory and was
+    walked in device memory. Returns (table, numbers)."""
     from warpconvnet_tpu_torch.kernels import sorted_search
-    from warpconvnet_tpu_torch.ops.kernel_map import kernel_offsets
     from warpconvnet_tpu_torch.ops.keys import PAD_COORD, coord_keys
 
     keys = coord_keys(torch.where(vox.valid_mask()[..., None], vox.coords, PAD_COORD))
-    args = (keys, vox.num_valid, vox.coords, vox.num_valid, kernel_offsets(3), (1, 1, 1))
+    args = (keys, vox.num_valid, vox.coords, vox.num_valid, offsets, (1, 1, 1))
+    sorted_search.reset_probe_tile_counts()
     got = sorted_search.kernel_map_probe(*args)
     ref = sorted_search.kernel_map_probe_plain(*args)
     torch.cuda.synchronize()
+    tiles, wide = sorted_search.probe_tile_counts(vox.coords.device)
     mismatches = int((got != ref).sum())
     err = int((got.long() - ref.long()).abs().max())
-    check(mismatches == 0, f"K1: {mismatches} table entries differ from the plain version")
+    del ref
+    check(mismatches == 0, f"{label}: {mismatches} table entries differ from the plain version")
     hits = int((got >= 0).sum())
     ms = cuda_ms(lambda: sorted_search.kernel_map_probe(*args))
+    dev_ms = device_ms(lambda: sorted_search.kernel_map_probe(*args))
     plain_ms = cuda_ms(lambda: sorted_search.kernel_map_probe_plain(*args))
-    lib_ms = searchsorted_ms(*args)
+    qk, _ = sorted_search._queries(vox.coords, vox.num_valid, offsets, (1, 1, 1))
+    qk = qk.reshape(B, -1).contiguous()
+    lib_ms = cuda_ms(lambda: torch.searchsorted(keys, qk))
+    lib_dev_ms = device_ms(lambda: torch.searchsorted(keys, qk))
+    del qk
     bound_ms, bound_by = bound(nbytes(keys, vox.coords, got))
-    log(f"K1 table {tuple(got.shape)}: equal to plain, {hits} pairs; "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.searchsorted {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms")
-    return got, dict(
+    log(f"{label} table {tuple(got.shape)}: equal to plain, {hits} pairs; kernel {ms:.4f} ms "
+        f"({dev_ms:.4f} ms in a trace), plain {plain_ms:.4f} ms, torch.searchsorted "
+        f"{lib_ms:.4f} ms ({lib_dev_ms:.4f} ms in a trace), bound {bound_ms:.4f} ms; {wide} of "
+        f"{tiles} tiles walked in device memory; card {card_name()}")
+    return got, dict(max_abs_err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                     library_device_ms=lib_dev_ms, global_share=wide / tiles)
+
+
+def phase_k1(vox):
+    """K1 on the L0 3^3 map and on the 7^3 map of the ConvNeXt block."""
+    from warpconvnet_tpu_torch.ops.kernel_map import kernel_offsets
+
+    table, entry = probe_case(vox, kernel_offsets(3), "K1 (L0 3^3)")
+    big, at7 = probe_case(vox, kernel_offsets(CONVNEXT_K), "K1 (7^3, the ConvNeXt map)")
+    del big
+    return table, dict(
         name="kernel_map_probe", route="cuda",
         source="warpconvnet_tpu_torch/csrc/sorted_search.cu",
         replaces="warpconvnet_tpu/kernels/sorted_search.py:288",
-        shape=f"B={B} K=27 M={got.shape[2]} (L0 3^3 submanifold map)",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=lib_ms,
+        shape=f"B={B} K=27 M={table.shape[2]} (L0 3^3 submanifold map)", **entry,
+        at_7cubed=dict(shape=f"B={B} K=343 M={table.shape[2]} (7^3 self-map)", **at7),
     )
-
-
-def searchsorted_ms(keys, in_nv, out_coords, out_nv, offsets, stride):
-    """The one PyTorch call that does the probe's search: torch.searchsorted
-    of the formed query keys in the sorted keys."""
-    from warpconvnet_tpu_torch.kernels import sorted_search
-
-    qk, _ = sorted_search._queries(out_coords, out_nv, offsets, stride)
-    qk = qk.reshape(keys.shape[0], -1).contiguous()
-    return cuda_ms(lambda: torch.searchsorted(keys, qk))
 
 
 def phase_k5(vox):
     """K1's kernel on offsets with no (dx, dy, dz) grid, the contract of the
     JAX package's plain probe K5 (``sorted_search.py:54``)."""
-    from warpconvnet_tpu_torch.kernels import sorted_search
-    from warpconvnet_tpu_torch.ops.keys import PAD_COORD, coord_keys
-
     cross = np.array([[1, 0, 0], [0, 0, 0], [0, -1, 0], [0, 0, 1], [-1, 0, 0], [0, 1, 0],
                       [0, 0, -1]], np.int32)
-    keys = coord_keys(torch.where(vox.valid_mask()[..., None], vox.coords, PAD_COORD))
-    args = (keys, vox.num_valid, vox.coords, vox.num_valid, cross, (1, 1, 1))
-    got = sorted_search.kernel_map_probe(*args)
-    ref = sorted_search.kernel_map_probe_plain(*args)
-    torch.cuda.synchronize()
-    mismatches = int((got != ref).sum())
-    check(mismatches == 0, f"K5 contract: {mismatches} table entries differ from the plain version")
-    ms = cuda_ms(lambda: sorted_search.kernel_map_probe(*args))
-    plain_ms = cuda_ms(lambda: sorted_search.kernel_map_probe_plain(*args))
-    lib_ms = searchsorted_ms(*args)
-    bound_ms, bound_by = bound(nbytes(keys, vox.coords, got))
-    log(f"K5 contract (cross offsets) by K1's kernel: table {tuple(got.shape)} equal to plain, "
-        f"{int((got >= 0).sum())} pairs; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.searchsorted {lib_ms:.4f} ms, bound {bound_ms:.4f} ms")
+    table, entry = probe_case(vox, cross, "K5 contract (cross offsets) by K1's kernel")
     return dict(
         name="kernel_map_probe (K5 contract: 7-point cross offsets)", route="cuda",
         source="warpconvnet_tpu_torch/csrc/sorted_search.cu",
         replaces="warpconvnet_tpu/kernels/sorted_search.py:54",
-        shape=f"B={B} K=7 M={got.shape[2]} (L0, no offset grid)",
-        max_abs_err=int((got.long() - ref.long()).abs().max()), ms=ms, plain_ms=plain_ms,
-        bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+        shape=f"B={B} K=7 M={table.shape[2]} (L0, no offset grid)", **entry,
         note="not on a main path: no main path probes offsets without a grid",
     )
 
@@ -1574,11 +1619,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from warpconvnet_tpu_torch.kernels import _build  # fails outside the repo
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
+    print(card_name(), flush=True)
 
     t0 = time.perf_counter()
     _build.load_library()
@@ -1597,6 +1638,9 @@ def main() -> int:
     bwd = phase_bwd(vox, table)
     depth = phase_depthwise(vox, table)
     del table, vox
+    from warpconvnet_tpu_torch.kernels import sorted_search
+
+    sorted_search.reset_probe_tile_counts()
     # The main paths, each driven with every count set to 0 just before it.
     paths = {f"MinkUNet18 inference ({REQUESTS} requests)": phase_slice(device),
              f"MinkUNet18 train ({TRAIN_STEPS} steps)": phase_train(device)}
@@ -1606,6 +1650,9 @@ def main() -> int:
     k9_bwd = phase_k9_bwd(tokens)
     paths[f"Volt-s inference ({REQUESTS} requests)"] = phase_volt(device)
     paths[f"Volt-s train ({VOLT_TRAIN_STEPS} steps)"] = phase_volt_train(device)
+    tiles, wide = sorted_search.probe_tile_counts(device)
+    log(f"K1 over the main-path phases: {wide} of {tiles} tiles walked in device memory")
+    k1["main_paths_global_share"] = wide / tiles
     entries = dict(k1=k1, fwd=k2, **bwd, **depth, attn=k9, **k9_bwd)
     for key, entry in entries.items():
         by_path = {p: c[key] for p, c in paths.items() if c[key]}

@@ -28,6 +28,7 @@ from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
 from warpconvnet_tpu_torch.parallel.train import make_segmentation_train_step
 from warpconvnet_tpu_torch.ops.kernel_map import kernel_offsets
 from warpconvnet_tpu_torch.ops.keys import PAD_COORD, coord_keys
+from warpconvnet_tpu_torch.utils.scenes import make_surface_scene
 
 pytestmark = pytest.mark.gpu
 
@@ -96,6 +97,88 @@ def test_k1_range_edge_matches_plain(cuda):
     assert torch.equal(
         sorted_search.kernel_map_probe(*args), sorted_search.kernel_map_probe_plain(*args)
     )
+
+
+CROSS = np.array([[1, 0, 0], [0, 0, 0], [0, -1, 0], [0, 0, 1], [-1, 0, 0], [0, 1, 0],
+                  [0, 0, -1]], np.int32)
+
+
+def _scene_voxels(scenes, n, device):
+    """Lex-sorted voxels of the given [n_i, 3] scenes, padded to n rows."""
+    coords = np.full((len(scenes), n, 3), PAD_COORD, np.int32)
+    for i, c in enumerate(scenes):
+        coords[i, : len(c)] = c
+    nv = [len(c) for c in scenes]
+    return Voxels.create(coords, np.zeros((len(scenes), n, 1), np.float32), nv,
+                         device=device).lex_sort()
+
+
+def _probe_once(args):
+    """K1 against its plain version on ``args``: asserts one launch and equal
+    tables; returns (tiles, tiles walked in device memory) of that launch."""
+    sorted_search.reset_probe_tile_counts()
+    before = sorted_search.kernel_map_probe.launches
+    got = sorted_search.kernel_map_probe(*args)
+    ref = sorted_search.kernel_map_probe_plain(*args)
+    torch.cuda.synchronize()
+    assert sorted_search.kernel_map_probe.launches == before + 1
+    assert torch.equal(got, ref)
+    assert int((got >= 0).sum()) > 0
+    return sorted_search.probe_tile_counts(args[0].device)
+
+
+def _bench_scene(cuda):
+    return _scene_voxels([make_surface_scene(np.random.default_rng(0), 1 << 17)], 1 << 17, cuda)
+
+
+def test_k1_7cubed_surface_scene_stays_in_shared_memory(cuda):
+    vox = _bench_scene(cuda)
+    tiles, wide = _probe_once(_probe_args(vox, vox, kernel_offsets(7), (1, 1, 1)))
+    assert tiles > 0 and wide == 0
+
+
+def test_k1_unsorted_output_rows_take_the_device_memory_walk(cuda):
+    vox = _bench_scene(cuda)
+    nv = int(vox.num_valid[0])
+    perm = torch.randperm(nv, generator=torch.Generator().manual_seed(0)).to(cuda)
+    out = vox.replace(coords=torch.cat([vox.coords[:, perm], vox.coords[:, nv:]], 1))
+    tiles, wide = _probe_once(_probe_args(vox, out, kernel_offsets(7), (1, 1, 1)))
+    assert 0 < wide <= tiles
+
+
+def test_k1_two_scenes_with_tiles_across_pad_rows(cuda):
+    rng = np.random.default_rng(3)
+    scenes = [make_surface_scene(rng, 20_000, coord_range=160, n_points=25_000)[:nv]
+              for nv in (7_777, 5_003)]
+    vox = _scene_voxels(scenes, 8_200, cuda)
+    assert vox.num_valid.tolist() == [7_777, 5_003]
+    tiles, wide = _probe_once(_probe_args(vox, vox, kernel_offsets(3), (1, 1, 1)))
+    assert tiles >= 2 and wide == 0
+
+
+@pytest.mark.parametrize("case", ["3^3 stride 2", "cross"])
+def test_k1_strided_map_and_cross(cuda, case):
+    fine = make_surface_scene(np.random.default_rng(5), 30_000, coord_range=256,
+                              n_points=30_000)
+    vox = _scene_voxels([fine], 30_000, cuda)
+    if case == "cross":
+        args = _probe_args(vox, vox, CROSS, (1, 1, 1))
+    else:
+        coarse = np.unique(fine // 2, axis=0)
+        args = _probe_args(vox, _scene_voxels([coarse], len(coarse) + 100, cuda),
+                           kernel_offsets(3), (2, 2, 2))
+    tiles, wide = _probe_once(args)
+    assert tiles > 0 and wide == 0
+
+
+def test_k1_dense_plane_wider_than_shared_memory(cuda):
+    # 96 x 96 = 9216 keys a plane, over twice the 4096 keys a block stages.
+    side = 96
+    g = np.stack(np.meshgrid(np.arange(3), np.arange(side), np.arange(side), indexing="ij"), -1)
+    cube = g.reshape(-1, 3).astype(np.int32) - np.array([1, side // 2, side // 2], np.int32)
+    vox = _scene_voxels([cube], len(cube) + 37, cuda)
+    tiles, wide = _probe_once(_probe_args(vox, vox, kernel_offsets(3), (1, 1, 1)))
+    assert wide == tiles > 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

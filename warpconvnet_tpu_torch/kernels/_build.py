@@ -34,9 +34,9 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # int wct_kernel_map_probe(keys, in_nv, n, out_coords, out_nv, m,
-    #                          offsets, k, sx, sy, sz, b, table, stream)
-    "wct_kernel_map_probe": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    # int wct_kernel_map_probe(keys, in_nv, n, out_coords, out_nv, m, desc,
+    #                          n_groups, k, sx, sy, sz, b, table, counts, stream)
+    "wct_kernel_map_probe": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # int wct_igemm_fwd(x, w, table, out, b, n_in, n_out, k, c_in, c_out,
     #                   dtype, stream)
     "wct_igemm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
