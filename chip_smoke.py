@@ -17,7 +17,8 @@ Phases (any failure exits non-zero):
      the share of tiles walked in device memory (window wider than shared
      memory).
   4. K2: the implicit-GEMM forward on that map at C 32->32 and 256->256 in
-     fp32 and bf16, CUDA kernel against its plain version.
+     fp32 and bf16, CUDA kernel against its plain version, its tiles in the
+     map's row order and in the index order (the same bits).
   5. slice: MinkUNet18 (3 -> 20 classes, bf16 compute, fp32 params, seeded
      weights, eval mode) answers 3 requests, each a fresh scene pair whose
      maps are built inside the forward. Checks finite logits, 5 K1 and 40
@@ -25,8 +26,14 @@ Phases (any failure exits non-zero):
      card; a small fp32 forward checks the kernels tightly.
   6. backward kernels: K2 as dgrad and K3 on the L0 -> L1 2^3 parity map
      and its reverse, K4 on the L0 3^3 map (also timed against the K2-dgrad
-     + K3 pair), each against its plain version at C 32 fp32 and at the
-     bf16 shapes 128 -> 96 and 96 -> 96.
+     + K3 pair, with its count of dw atomics), each against its plain
+     version at C 32 fp32 and at the bf16 shapes 128 -> 96 and 96 -> 96.
+     K2, K2-dgrad and K4 take their tiles in the maps' row orders.
+  6b. step shapes: K2, K2-dgrad and K4 at every call shape of the bf16
+     MinkUNet18 train step on the bench pair (the 3^3 maps of L0-L4 and the
+     2^3 maps and their reverses), each against its plain version, timed,
+     with its bound and launches a step; each map's tile work over its
+     useful pairs in the index order and in its row order.
   7. train: MinkUNet18 (bf16 compute, fp32 params, seeded weights and
      labels, Adam 1e-3) takes 5 steps on one bench scene pair on the kernel
      path and 5 from the same state on the plain path. Checks 5 K1, 40 K2,
@@ -121,6 +128,19 @@ TRAIN_STEPS = 5
 LR = 1e-3
 ADAM_EPS = 1e-8
 PER_STEP = dict(k1=5, fwd=40, dgrad=8, wgrad=8, fused=32)
+# The table convs of a MinkUNet18 step (models/mink_unet.py), (c_in, c_out,
+# convs a step): the 3^3 convs of each level (encoder stage, then decoder
+# stage), the 2^3 strided convs Li -> Li+1 and the transposed convs
+# Li+1 -> Li, i = 0..3.
+STEP_SUB = {
+    0: ((128, 96, 1), (96, 96, 3)),
+    1: ((32, 32, 4), (128, 96, 1), (96, 96, 3)),
+    2: ((32, 64, 1), (64, 64, 3), (192, 128, 1), (128, 128, 3)),
+    3: ((64, 128, 1), (128, 128, 3), (384, 256, 1), (256, 256, 3)),
+    4: ((128, 256, 1), (256, 256, 3)),
+}
+STEP_DOWN = ((32, 32), (32, 32), (64, 64), (128, 128))
+STEP_UP = ((96, 96), (128, 96), (256, 128), (256, 256))
 # Step 1 on the kernel path against the plain path, same card, same state.
 # fp32: the same sums in another order (measured: loss 6.3e-8, gradients
 # 1.2e-4, the worst being BN biases, sums that nearly cancel). bf16: both
@@ -229,23 +249,27 @@ def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
-        trace = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
     # The trace may drop an event: a mean per kernel name, each kernel of
-    # ``fn`` launched once a call.
+    # ``fn`` launched once a call; a trace that lost every kernel event is
+    # taken again (at most three windows).
     by_name = {}
-    for e in events:
-        if e.get("ph") == "X" and e.get("cat") == "kernel":
-            by_name.setdefault(e["name"], []).append(e["dur"])
-    check(by_name != {}, "device_ms: no kernel in the trace")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+            trace = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(trace)
+            with open(trace) as f:
+                events = json.load(f)["traceEvents"]
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") == "kernel":
+                by_name.setdefault(e["name"], []).append(e["dur"])
+        if by_name:
+            break
+    check(by_name != {}, "device_ms: no kernel in three traces")
     return sum(sum(d) / len(d) for d in by_name.values()) / 1e3
 
 
@@ -330,10 +354,16 @@ def plain_kernels():
     modules = {"k1": sorted_search, "fwd": ig, "dgrad": ig, "wgrad": ig, "fused": ig,
                "dfwd": dw, "ddgrad": dw, "dwgrad": dw, "dfused": dw, "attn": k9, "dkv": k9,
                "dq": k9}
+
+    def orderless(plain):  # K2 and K4 take a row order; their plain versions take none
+        return lambda *args, order=None, **kwargs: plain(*args, **kwargs)
+
     with ExitStack() as stack:
         for key, fn in wrappers().items():
+            plain = getattr(modules[key], fn.__name__ + "_plain")
             stack.enter_context(mock.patch.object(
-                modules[key], fn.__name__, getattr(modules[key], fn.__name__ + "_plain")
+                modules[key], fn.__name__, orderless(plain) if key in ("fwd", "dgrad", "fused")
+                else plain
             ))
         # K9-dkv and K9-dq share one pass of the plain backward.
         stack.enter_context(mock.patch.object(k9, "segment_attention_bwd",
@@ -433,29 +463,40 @@ def phase_k5(vox):
 
 
 def phase_k2(vox, table):
+    """K2 on the L0 3^3 map at C 32->32 and 256->256 in fp32 and bf16, its
+    tiles in the map's row order (the main path's) and in the index order:
+    the same bits, both timed."""
     from warpconvnet_tpu_torch.kernels import implicit_gemm
+    from warpconvnet_tpu_torch.ops.kernel_map import row_order
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     mask = vox.valid_mask()[..., None]
     n = vox.max_num_points
+    order = row_order(table)
     entry = None
     for c in (32, 256):
         x32 = torch.randn((B, n, c), generator=gen, device="cuda") * mask
         w32 = torch.randn((27, c, c), generator=gen, device="cuda") / np.sqrt(27 * c)
         for dtype in (torch.float32, torch.bfloat16):
             x, w = x32.to(dtype), w32.to(dtype)
-            got = implicit_gemm.implicit_gemm_fwd(x, w, table)
+            got = implicit_gemm.implicit_gemm_fwd(x, w, table, order=order)
+            unordered = implicit_gemm.implicit_gemm_fwd(x, w, table)
             ref = implicit_gemm.implicit_gemm_fwd_plain(x, w, table)
             torch.cuda.synchronize()
+            bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            check(torch.equal(got.view(bits), unordered.view(bits)),
+                  f"K2 C {c}: the row order changed the output's bits")
             err = float((got.float() - ref.float()).abs().max())
             torch.testing.assert_close(got.float(), ref.float(), **K2_TOL[dtype])
-            ms = cuda_ms(lambda: implicit_gemm.implicit_gemm_fwd(x, w, table))
+            ms = cuda_ms(lambda: implicit_gemm.implicit_gemm_fwd(x, w, table, order=order))
+            index_ms = cuda_ms(lambda: implicit_gemm.implicit_gemm_fwd(x, w, table))
             plain_ms = cuda_ms(lambda: implicit_gemm.implicit_gemm_fwd_plain(x, w, table))
             flops = 2.0 * int((table >= 0).sum()) * c * c
             bound_ms, bound_by = bound(nbytes(x, w, table, got), flops, dtype)
-            log(f"K2 C {c}->{c} {str(dtype)[6:]}: max_abs_err {err:.3e}; kernel "
-                f"{ms:.4f} ms ({flops / ms / 1e9:.2f} useful TFLOP/s), plain {plain_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by})")
+            log(f"K2 C {c}->{c} {str(dtype)[6:]}: max_abs_err {err:.3e}, the same bits in "
+                f"either order; kernel {ms:.4f} ms in the map's order ({flops / ms / 1e9:.2f} "
+                f"useful TFLOP/s), {index_ms:.4f} ms in the index order, plain "
+                f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
             if c == 256 and dtype == torch.bfloat16:
                 entry = dict(
                     name="implicit_gemm_fwd", route="cuda",
@@ -463,7 +504,7 @@ def phase_k2(vox, table):
                     replaces="warpconvnet_tpu/kernels/implicit_gemm.py:546",
                     shape=f"B={B} K=27 N={n} C 256->256 bf16 (L0 map)",
                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                    bound_by=bound_by, library_ms=None,
+                    bound_by=bound_by, library_ms=None, index_order_ms=index_ms,
                 )
     return entry
 
@@ -540,13 +581,15 @@ def phase_bwd(vox, table3):
     from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
         generate_output_coords_and_kernel_map,
     )
-    from warpconvnet_tpu_torch.ops.kernel_map import kernel_offsets
+    from warpconvnet_tpu_torch.ops.kernel_map import kernel_offsets, row_order
 
     _, _, down, _ = generate_output_coords_and_kernel_map(
         vox, 2, stride=2, out_capacity=N_CAP // 2
     )
+    down = down.with_orders()
     up = down.reversed()
     offsets3 = kernel_offsets(3)
+    order3 = row_order(table3)
     gen = torch.Generator(device="cuda").manual_seed(1)
     n0, n1 = vox.max_num_points, down.table.shape[2]
     entries = {}
@@ -569,8 +612,8 @@ def phase_bwd(vox, table3):
             x = rand((B, n_in, c_in)).to(dtype)
             g = rand((B, n_out, c_out), n_out ** -0.5).to(dtype)
             w = rand((8, c_in, c_out), (8 * c_in) ** -0.5).to(dtype)
-            rev = bpt.rev.contiguous()
-            dx = ig.implicit_gemm_dgrad(g, w, rev)
+            rev, rev_order = bpt.rev.contiguous(), bpt.rev_order
+            dx = ig.implicit_gemm_dgrad(g, w, rev, order=rev_order)
             ref_dx = ig.implicit_gemm_dgrad_plain(g, w, rev)
             dw = ig.implicit_gemm_wgrad(x, g, bpt.table)
             ref_dw = ig.implicit_gemm_wgrad_plain(x, g, bpt.table)
@@ -580,7 +623,7 @@ def phase_bwd(vox, table3):
             w_err = dw_err(dw, ref_dw)
             w_abs = float((dw - ref_dw).abs().max())
             t = dict(
-                dgrad=cuda_ms(lambda: ig.implicit_gemm_dgrad(g, w, rev)),
+                dgrad=cuda_ms(lambda: ig.implicit_gemm_dgrad(g, w, rev, order=rev_order)),
                 dgrad_plain=cuda_ms(lambda: ig.implicit_gemm_dgrad_plain(g, w, rev)),
                 wgrad=cuda_ms(lambda: ig.implicit_gemm_wgrad(x, g, bpt.table)),
                 wgrad_plain=cuda_ms(lambda: ig.implicit_gemm_wgrad_plain(x, g, bpt.table)),
@@ -615,21 +658,27 @@ def phase_bwd(vox, table3):
         g = rand((B, n0, c_out), n0 ** -0.5).to(dtype)
         w = rand((27, c_in, c_out), (27 * c_in) ** -0.5).to(dtype)
         rev3 = table3.flip(1).contiguous()
-        dx, dw = ig.implicit_gemm_bwd_fused(x, g, w, table3, offsets3)
+        ig.reset_work_counts()
+        dx, dw = ig.implicit_gemm_bwd_fused(x, g, w, table3, offsets3, order=order3)
+        atomics = ig.work_counts(x.device)["fused_dw_floats"]
         ref_dx, ref_dw = ig.implicit_gemm_bwd_fused_plain(x, g, w, table3, offsets3)
         torch.cuda.synchronize()
+        model = ig.bwd_fused_dw_atomics(
+            table3, c_in, c_out, ig.DW_ROWS if dtype == torch.bfloat16 else ig.F_DW_ROWS)
+        check(atomics == model, f"K4 {tag}: {atomics} dw floats added, the model counts {model}")
         torch.testing.assert_close(dx.float(), ref_dx.float(), **K2_TOL[dtype])
         dx_err = float((dx.float() - ref_dx.float()).abs().max())
         w_err = dw_err(dw, ref_dw)
-        ms = cuda_ms(lambda: ig.implicit_gemm_bwd_fused(x, g, w, table3, offsets3))
+        ms = cuda_ms(lambda: ig.implicit_gemm_bwd_fused(x, g, w, table3, offsets3, order=order3))
         plain_ms = cuda_ms(lambda: ig.implicit_gemm_bwd_fused_plain(x, g, w, table3, offsets3))
-        pair_ms = cuda_ms(lambda: (ig.implicit_gemm_dgrad(g, w, rev3),
+        pair_ms = cuda_ms(lambda: (ig.implicit_gemm_dgrad(g, w, rev3, order=order3),
                                    ig.implicit_gemm_wgrad(x, g, table3)))
         fused_bound = bound(nbytes(x, g, w, table3, dx, dw),
                             4.0 * int((table3 >= 0).sum()) * c_in * c_out, dtype)
         log(f"L0 3^3 self-map {tag}: K4 dx max_abs_err {dx_err:.3e}, dw rel err "
             f"{w_err:.3e}; K4 {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"K2-dgrad + K3 pair {pair_ms:.4f} ms, bound {fused_bound[0]:.4f} ms")
+            f"K2-dgrad + K3 pair {pair_ms:.4f} ms, bound {fused_bound[0]:.4f} ms; the kernel's "
+            f"dw blocks added {atomics} floats with atomics (as the host model counts)")
         if (c_in, c_out) == (128, 96):
             entries["fused"] = dict(
                 name="implicit_gemm_bwd_fused", route="cuda",
@@ -638,8 +687,194 @@ def phase_bwd(vox, table3):
                 shape=f"B={B} K=27 N={n0} C 128->96 bf16 (L0 3^3 map)",
                 max_abs_err=dx_err, ms=ms, plain_ms=plain_ms, pair_ms=pair_ms,
                 bound_ms=fused_bound[0], bound_by=fused_bound[1], library_ms=None,
+                dw_atomic_floats=atomics,
             )
     return entries
+
+
+def step_maps(vox):
+    """The bench pair's MinkUNet18 maps, built as the model builds them:
+    the 3^3 self-map of each level L0-L4 and the 2^3 map of each
+    downsample Li -> Li+1 (the decoder's transposed conv reads it
+    reversed), each with its row orders (a port whose maps take none
+    keeps them as they are)."""
+    from warpconvnet_tpu_torch.geometry.voxels import Voxels
+    from warpconvnet_tpu_torch.models.mink_unet import MinkUNetBase
+    from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
+        generate_output_coords_and_kernel_map,
+    )
+
+    def ordered(m):
+        return m.with_orders() if hasattr(m, "with_orders") else m
+
+    caps = MinkUNetBase._caps(vox.max_num_points)
+    subs, downs = [], []
+    level = vox
+    for i in range(5):
+        subs.append(ordered(generate_output_coords_and_kernel_map(level, 3)[2]))
+        if i == 4:
+            break
+        oc, onv, down, ts = generate_output_coords_and_kernel_map(
+            level, 2, stride=2, out_capacity=caps[i + 1]
+        )
+        downs.append(ordered(down))
+        level = Voxels(coords=oc, features=torch.zeros_like(oc[..., :1], dtype=torch.float32),
+                       num_valid=onv, voxel_size=level.voxel_size, tensor_stride=ts,
+                       lex_sorted=True)
+    return subs, downs
+
+
+def step_shapes(subs, downs):
+    """(kind, label, table, its order, rows of the gathered side, c_in,
+    c_out, launches a step, the self-map for K4 or None) of every K2,
+    K2-dgrad and K4 call shape of a MinkUNet18 train step on
+    ``step_maps``' maps. A dgrad's c_in / c_out are those of its product:
+    g's channels in, the conv's input channels out. (A port whose maps
+    carry no row orders gets None.)"""
+    shapes = []
+    for level, sub in enumerate(subs):
+        n, order = sub.table.shape[2], getattr(sub, "order", None)
+        for c_in, c_out, convs in STEP_SUB[level]:
+            label = f"L{level} 3^3 {c_in}->{c_out}"
+            shapes.append(("fwd", label, sub.table, order, n, c_in, c_out, convs, None))
+            shapes.append(("fused", label, sub.table, order, n, c_in, c_out, convs, sub))
+    for i, down in enumerate(downs):
+        fine, coarse = down.rev.shape[2], down.table.shape[2]
+        order, rev_order = getattr(down, "order", None), getattr(down, "rev_order", None)
+        c_in, c_out = STEP_DOWN[i]
+        label = f"L{i}->L{i + 1} 2^3 {c_in}->{c_out}"
+        shapes.append(("fwd", label, down.table, order, fine, c_in, c_out, 1, None))
+        shapes.append(("dgrad", label, down.rev, rev_order, coarse, c_out, c_in, 1, None))
+        c_in, c_out = STEP_UP[i]
+        label = f"L{i + 1}->L{i} 2^3 transposed {c_in}->{c_out}"
+        shapes.append(("fwd", label, down.rev, rev_order, coarse, c_in, c_out, 1, None))
+        shapes.append(("dgrad", label, down.table, order, fine, c_out, c_in, 1, None))
+    return shapes
+
+
+def phase_step_shapes(vox):
+    """K2, K2-dgrad and K4 at every call shape of the bf16 MinkUNet18 train
+    step on the bench pair, each against its plain version, timed, with its
+    bound and its launches a step; each map's tile work (K2's own count,
+    checked against the host model ``tile_work``) under the index order and
+    under its row order, and the order's build time, also for the maps of
+    the paths that take no order (the ConvNeXt block's 7^3 self-map, Volt's
+    4^3 / 4 pooling map). Returns {kind: [shape results]} and the maps'
+    numbers."""
+    from warpconvnet_tpu_torch.kernels import implicit_gemm as ig
+    from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
+        generate_output_coords_and_kernel_map,
+    )
+    from warpconvnet_tpu_torch.ops.kernel_map import row_order
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def counted(kind, fn):
+        """fn()'s result and the count its kernel adds under ``kind``."""
+        ig.reset_work_counts()
+        out = fn()
+        return out, ig.work_counts(vox.coords.device)[kind]
+
+    subs, downs = step_maps(vox)
+    maps = [(f"L{i} 3^3", m.table, m.order, m.table.shape[2]) for i, m in enumerate(subs)]
+    for i, d in enumerate(downs):
+        fine, coarse = d.rev.shape[2], d.table.shape[2]
+        maps += [(f"L{i}->L{i + 1} 2^3", d.table, d.order, fine),
+                 (f"L{i + 1}->L{i} 2^3 (rev)", d.rev, d.rev_order, coarse)]
+    map_rows = []
+    for label, table, order, n_in in maps:
+        x = torch.randn((table.shape[0], n_in, 32), generator=gen, device="cuda").to(dt)
+        w = torch.randn((table.shape[1], 32, 32), generator=gen, device="cuda").to(dt)
+        pairs = int((table >= 0).sum())
+        work = {}
+        for name, o in (("index", None), ("row", order)):
+            _, work[name] = counted("fwd_tile_work", lambda: ig.implicit_gemm_fwd(x, w, table,
+                                                                                  order=o))
+            model = ig.tile_work(table, o)[0]
+            check(work[name] == model, f"{label}: K2 counted tile work {work[name]} in the "
+                  f"{name} order, the model {model}")
+        order_ms = cuda_ms(lambda: row_order(table), iters=5)
+        map_rows.append(dict(map=label, shape=list(table.shape), pairs=pairs,
+                             tile_work_index_order=work["index"] / pairs,
+                             tile_work_row_order=work["row"] / pairs, order_ms=order_ms))
+        log(f"{label} map {tuple(table.shape)}: {pairs} pairs; K2's tile work / useful pairs "
+            f"{work['index'] / pairs:.3f} in the index order, {work['row'] / pairs:.3f} in its "
+            f"row order (as the host model counts); row order built in {order_ms:.4f} ms")
+    del x, w
+    for label, ks, st, cap in (
+            (f"{CONVNEXT_K}^3 (ConvNeXt, no order taken)", CONVNEXT_K, 1, None),
+            (f"{PATCH}^3 / {PATCH} (Volt pooling, no order taken)", PATCH, PATCH, TOKEN_CAPACITY)):
+        table = generate_output_coords_and_kernel_map(vox, ks, st, out_capacity=cap)[2].table
+        order_ms = cuda_ms(lambda: row_order(table), iters=5)
+        log(f"{label} map {tuple(table.shape)}: a row order would take {order_ms:.4f} ms")
+        del table
+
+    results = dict(fwd=[], dgrad=[], fused=[])
+    for kind, label, table, order, n_src, c_in, c_out, convs, sub in step_shapes(subs, downs):
+        b, k, n_out = table.shape
+        pairs = int((table >= 0).sum())
+        flops = 2.0 * pairs * c_in * c_out
+        if kind == "fused":
+            x = torch.randn((b, n_out, c_in), generator=gen, device="cuda").to(dt)
+            g = (torch.randn((b, n_out, c_out), generator=gen, device="cuda") / 300).to(dt)
+            w = (torch.randn((k, c_in, c_out), generator=gen, device="cuda") / (k * c_in) ** 0.5)
+            w = w.to(dt)
+            args = (x, g, w, table, sub.offsets)
+            ig.reset_work_counts()
+            got_dx, got_dw = ig.implicit_gemm_bwd_fused(*args, order=order)
+            counts = ig.work_counts(x.device)
+            ref_dx, ref_dw = ig.implicit_gemm_bwd_fused_plain(*args)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got_dx.float(), ref_dx.float(), **K2_TOL[dt])
+            err = float((got_dx.float() - ref_dx.float()).abs().max())
+            dw_err = rel_err(got_dw, ref_dw)
+            check(dw_err <= DW_TOL, f"K4 {label}: dw relative error {dw_err:.3e} > {DW_TOL}")
+            ms = cuda_ms(lambda: ig.implicit_gemm_bwd_fused(*args, order=order))
+            plain_ms = cuda_ms(lambda: ig.implicit_gemm_bwd_fused_plain(*args), iters=3, warmup=1)
+            b_ms, b_by = bound(nbytes(x, g, w, table, got_dx, got_dw), 2 * flops, dt)
+            model = ig.bwd_fused_dw_atomics(table, c_in, c_out)
+            check(counts["fused_dw_floats"] == model,
+                  f"K4 {label}: {counts['fused_dw_floats']} dw floats added, the model {model}")
+            extra = dict(dw_rel_err=dw_err, tile_work=counts["fused_tile_work"],
+                         dw_atomic_floats=counts["fused_dw_floats"])
+            del x, g, w, got_dx, got_dw, ref_dx, ref_dw
+        else:
+            x = torch.randn((b, n_src, c_in), generator=gen, device="cuda").to(dt)
+            w = (torch.randn((k, c_in, c_out), generator=gen, device="cuda") / (k * c_in) ** 0.5)
+            w = w.to(dt)
+            if kind == "fwd":
+                fn = lambda: ig.implicit_gemm_fwd(x, w, table, order=order)  # noqa: E731
+                plain = lambda: ig.implicit_gemm_fwd_plain(x, w, table)  # noqa: E731
+            else:  # the dgrad of a conv whose weight is w^T [k, c_out, c_in]
+                wd = w.transpose(1, 2).contiguous()
+                fn = lambda: ig.implicit_gemm_dgrad(x, wd, table, order=order)  # noqa: E731
+                plain = lambda: ig.implicit_gemm_dgrad_plain(x, wd, table)  # noqa: E731
+            got, work = counted(f"{kind}_tile_work", fn)
+            ref = plain()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), ref.float(), **K2_TOL[dt])
+            err = float((got.float() - ref.float()).abs().max())
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            b_ms, b_by = bound(nbytes(x, w, table, got), flops, dt)
+            extra = dict(tile_work=work)
+            del x, w, got, ref
+        results[kind].append(dict(shape=label, k=k, rows=n_out, pairs=pairs,
+                                  launches_per_step=convs, max_abs_err=err, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **extra))
+        log(f"{dict(fwd='K2', dgrad='K2-dgrad', fused='K4')[kind]} {label} ({convs} a step, "
+            f"{pairs} pairs): max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})"
+            + f"; tile work {extra['tile_work']}"
+            + (f"; dw rel err {extra['dw_rel_err']:.3e}, {extra['dw_atomic_floats']} dw floats "
+               "added with atomics" if kind == "fused" else ""))
+    for kind, rows in results.items():
+        total = sum(r["ms"] * r["launches_per_step"] for r in rows)
+        launches = sum(r["launches_per_step"] for r in rows)
+        log(f"{dict(fwd='K2', dgrad='K2-dgrad', fused='K4')[kind]} over a MinkUNet18 step's "
+            f"shapes: {launches} launches, {total:.4f} ms by the shapes' times; card {card_name()}")
+    return results, map_rows
 
 
 def depth_entry(key, label, shape, err, ms, plain_ms, bound_pair):
@@ -1636,6 +1871,10 @@ def main() -> int:
     k5 = phase_k5(vox)
     k2 = phase_k2(vox, table)
     bwd = phase_bwd(vox, table)
+    step_shape_results, step_map_rows = phase_step_shapes(vox)
+    k2["step_shapes"], k2["step_maps"] = step_shape_results["fwd"], step_map_rows
+    bwd["dgrad"]["step_shapes"] = step_shape_results["dgrad"]
+    bwd["fused"]["step_shapes"] = step_shape_results["fused"]
     depth = phase_depthwise(vox, table)
     del table, vox
     from warpconvnet_tpu_torch.kernels import sorted_search

@@ -1063,3 +1063,138 @@ def test_k4_on_three_input_channels_matches_plain(cuda, dtype):
     assert dx.dtype == dtype and tuple(dx.shape) == tuple(x.shape) and dw.dtype == torch.float32
     torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype])
     torch.testing.assert_close(dw, ref_dw, **DW_TOL)
+
+
+def _bits(t):
+    """The tensor's bit patterns (so that -0.0 and 0.0 differ)."""
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _ordered_maps(cuda, c_in):
+    """(name, x, map) for maps with their row orders: the 3^3 and 5^3
+    self-maps (K 27, 125), the 2^3 parity map (K 8) and its reverse (K 8,
+    one offset a fine row), and a 3^3 map onto other coordinates, some of
+    whose valid rows have no pair. Two scenes of different sizes, so that a
+    tile of each holds both rows and pad rows."""
+    vox = _voxels(0, cuda, c=c_in).lex_sort()
+    sub, sub5, down = (generate_output_coords_and_kernel_map(vox, ks, st)[2].with_orders()
+                       for ks, st in ((3, 1), (5, 1), (2, 2)))
+    other = _voxels(4, cuda, n=1500, grid=30, c=c_in).lex_sort()
+    onto = generate_output_coords_and_kernel_map(vox, 3, out_coords=other)[2].with_orders()
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    coarse = torch.randn((2, down.table.shape[2], c_in), generator=gen, device=cuda)
+    return [("3^3", vox.features, sub), ("5^3", vox.features, sub5),
+            ("2^3 strided", vox.features, down), ("2^3 transposed", coarse, down.reversed()),
+            ("3^3 onto other coordinates", vox.features, onto)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_gives_the_same_bits_under_any_row_order(cuda, dtype):
+    """K2's output under the index order, the map's order and a random
+    permutation of each scene's rows: bit-identical."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    cpu_gen = torch.Generator().manual_seed(4)
+    for name, x, bpt in _ordered_maps(cuda, 96):
+        b, k, n = bpt.table.shape
+        w = (torch.randn((k, 96, 96), generator=gen, device=cuda) / (k * 96) ** 0.5).to(dtype)
+        x = x.to(dtype).contiguous()
+        perm = torch.stack([torch.randperm(n, generator=cpu_gen) for _ in range(b)])
+        outs = [implicit_gemm.implicit_gemm_fwd(x, w, bpt.table, order=o)
+                for o in (None, bpt.order, perm.to(torch.int32).to(cuda))]
+        torch.cuda.synchronize()
+        assert bpt.order is not None, name
+        for got in outs[1:]:
+            assert torch.equal(_bits(got), _bits(outs[0])), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out", [(3, 64), (12, 20), (32, 32), (128, 96), (64, 256),
+                                        (384, 256)])
+def test_k2_and_its_dgrad_in_the_maps_row_order_match_plain(cuda, dtype, c_in, c_out):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for name, x, bpt in _ordered_maps(cuda, c_in):
+        k, n_out = bpt.table.shape[1], bpt.table.shape[2]
+        w = (torch.randn((k, c_in, c_out), generator=gen, device=cuda) / (k * c_in) ** 0.5)
+        x, w = x.to(dtype).contiguous(), w.to(dtype)
+        g = (torch.randn((2, n_out, c_out), generator=gen, device=cuda) / n_out ** 0.5).to(dtype)
+        fwd, dg = implicit_gemm.implicit_gemm_fwd.launches, implicit_gemm.implicit_gemm_dgrad.launches
+        got = implicit_gemm.implicit_gemm_fwd(x, w, bpt.table, order=bpt.order)
+        dx = implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev, order=bpt.rev_order)
+        ref = implicit_gemm.implicit_gemm_fwd_plain(x, w, bpt.table)
+        ref_dx = implicit_gemm.implicit_gemm_dgrad_plain(g, w, bpt.rev)
+        torch.cuda.synchronize()
+        assert (implicit_gemm.implicit_gemm_fwd.launches,
+                implicit_gemm.implicit_gemm_dgrad.launches) == (fwd + 1, dg + 1), name
+        assert got.dtype == dtype and got.shape == (2, n_out, c_out), name
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype], msg=name)
+        torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
+        unmatched = (bpt.table < 0).all(dim=1)
+        assert bool(unmatched.any()) and bool((got[unmatched] == 0).all()), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c_in,c_out", [(3, 64), (12, 20), (32, 32), (128, 96), (96, 96),
+                                        (64, 256), (384, 256)])
+def test_k4_in_the_maps_row_order_matches_plain(cuda, dtype, c_in, c_out):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for name, x, bpt in _ordered_maps(cuda, c_in)[:2]:
+        k, n = bpt.table.shape[1], bpt.table.shape[2]
+        w = (torch.randn((k, c_in, c_out), generator=gen, device=cuda) / (k * c_in) ** 0.5)
+        x, w = x.to(dtype).contiguous(), w.to(dtype)
+        g = (torch.randn((2, n, c_out), generator=gen, device=cuda) / n ** 0.5).to(dtype)
+        before = implicit_gemm.implicit_gemm_bwd_fused.launches
+        dx, dw = implicit_gemm.implicit_gemm_bwd_fused(x, g, w, bpt.table, bpt.offsets,
+                                                       order=bpt.order)
+        ref_dx, ref_dw = implicit_gemm.implicit_gemm_bwd_fused_plain(x, g, w, bpt.table,
+                                                                     bpt.offsets)
+        torch.cuda.synchronize()
+        assert implicit_gemm.implicit_gemm_bwd_fused.launches == before + 1, name
+        assert dx.dtype == dtype and dw.dtype == torch.float32, name
+        torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
+        torch.testing.assert_close(dw, ref_dw, **DW_TOL, msg=name)
+        pad = (bpt.table < 0).all(dim=1)
+        assert bool(pad.any()) and bool((dx[pad] == 0).all()), name
+
+
+def test_k2_and_k4_wrappers_raise_on_a_bad_order(cuda):
+    vox = _voxels(0, cuda, c=8).lex_sort()
+    sub = generate_output_coords_and_kernel_map(vox, 3)[2].with_orders()
+    x, w = vox.features, torch.zeros(27, 8, 8, device=cuda)
+    for bad in (sub.order.long(), sub.order[:, :-1].contiguous(), sub.order.cpu(),
+                sub.order.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            implicit_gemm.implicit_gemm_fwd(x, w, sub.table, order=bad)
+        with pytest.raises(ValueError):
+            implicit_gemm.implicit_gemm_bwd_fused(x, x, w, sub.table, sub.offsets, order=bad)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_and_k4_count_their_work_as_the_host_models_do(cuda, dtype):
+    """The kernels' own counts (``work_counts``) equal ``tile_work`` in
+    either order and, for K4's dw, ``bwd_fused_dw_atomics`` at the chunk
+    rows of the dtype's dw blocks."""
+    chunk_rows = implicit_gemm.DW_ROWS if dtype == torch.bfloat16 else implicit_gemm.F_DW_ROWS
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    for name, x, bpt in _ordered_maps(cuda, 96):
+        k, n_out = bpt.table.shape[1], bpt.table.shape[2]
+        w = (torch.randn((k, 96, 160), generator=gen, device=cuda) / (k * 96) ** 0.5).to(dtype)
+        x = x.to(dtype).contiguous()
+        g = torch.randn((2, n_out, 160), generator=gen, device=cuda).to(dtype)
+        for order in (None, bpt.order):
+            implicit_gemm.reset_work_counts()
+            implicit_gemm.implicit_gemm_fwd(x, w, bpt.table, order=order)
+            got = implicit_gemm.work_counts(cuda)
+            assert got["fwd_tile_work"] == implicit_gemm.tile_work(bpt.table, order)[0], name
+        rev_order = bpt.rev_order
+        implicit_gemm.reset_work_counts()
+        implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev, order=rev_order)
+        got = implicit_gemm.work_counts(cuda)
+        assert got["dgrad_tile_work"] == implicit_gemm.tile_work(bpt.rev, rev_order)[0], name
+        if bpt.symmetric_self_map:
+            implicit_gemm.reset_work_counts()
+            implicit_gemm.implicit_gemm_bwd_fused(x, g, w, bpt.table, bpt.offsets,
+                                                  order=bpt.order)
+            got = implicit_gemm.work_counts(cuda)
+            assert got["fused_tile_work"] == implicit_gemm.tile_work(bpt.table, bpt.order)[0]
+            assert got["fused_dw_floats"] == implicit_gemm.bwd_fused_dw_atomics(
+                bpt.table, 96, 160, chunk_rows) > 0, name

@@ -1,244 +1,151 @@
-// Implicit-GEMM sparse-conv forward:
+// Implicit-GEMM sparse-conv forward (K2):
 //   out[b, o, :] = sum_k x[b, table[b, k, o], :] @ w[k]      (-1 adds zero)
 // x [B, N_in, C_in] and w [K, C_in, C_out] in fp32 or bf16, fp32
-// accumulation, out [B, N_out, C_out] in x's dtype.
+// accumulation, out [B, N_out, C_out] in x's dtype, rounded once. The
+// backward runs it again as dgrad on (g, w^T, rev).
 //
 // Replaces: warpconvnet_tpu/kernels/implicit_gemm.py `_igemm_kernel` with
-// its entry `implicit_gemm_fwd` (:546-680, :1022-1119).
+// its entry `implicit_gemm_fwd` (:546-680, :1022-1119), and the TPU
+// experiments computing the same function (scripts/perf_v4.py
+// `_kernel_v4`, scripts/perf_ablate.py `kernel`).
 //
-// What bounds it on the card: a block computes every row of its 64-row
-// output tile for every offset that has at least one pair in the tile, so
-// the work done is (non-empty tile-offset pairs) x 64 x C_in x C_out x 2
-// FLOPs, several times the useful pairs on a sparse surface map. bf16 runs
-// that on the tensor cores (mma.sync through WMMA, 16x16x16 bf16 ->
-// fp32), where the row gathers and shared-memory staging bound it; fp32
-// runs it on the CUDA cores, where FMA issue bounds it.
+// What bounds it on the card: the bytes of the gathered rows (each useful
+// pair reads one x row, L2-resident for the most part) and the weight
+// slices each tile reads for each of its offsets, against the tile work's
+// tensor-core operations, (non-empty tile-offset pairs) x 64 x C_in x C_out
+// x 2. A tile of 64 rows in the index order of a sparse surface map meets
+// nearly every offset while each row has about three pairs (9.7x the
+// useful pairs at the bench's L0 3^3 map); in the map's row order
+// (`order`, rows grouped by their offset mask) it meets about 2x.
 //
-// Design: one block per 64-row x 64-column output tile of one scene. It
-// walks the K offsets: loads the tile's 64 table entries, skips the offset
-// if none is valid, then for each slice of C_in gathers the 64 input rows
-// by index into shared memory (zero for -1 and past the ragged C_in edge),
-// stages the matching w[k] slice, and accumulates in fp32 registers. The
-// TPU kernel's window DMAs, one-hot matmul gathers, overflow residual pass,
-// identity fast path and 128-lane channel padding all existed because
-// Mosaic cannot gather rows by index; here a row is gathered by its index
-// directly and ragged channel edges are masked. wgmma and TMA come later.
+// Design (igemm.cuh): one block per (one or two 64-row tiles in the map's
+// order, chunk of up to 256 output columns, scene). It reads the tiles'
+// slab of table entries once, lists the offsets with a pair, and walks the
+// (offset, 64-channel slice) steps through a ring of shared-memory stages
+// into wgmma (bf16: a warpgroup a tile, the whole output width of the
+// chunk in registers so each x row is gathered once per tile; two tiles
+// share the weight slices above 128 columns). The rows arrive by cp.async
+// 16-byte copies; each step's weight slice by one bulk copy (TMA) from a
+// weight image that a small kernel lays out first in the ring's swizzled
+// layout, in place of 768-2048 cp.async copies a step. The epilogue
+// writes each row once through the order, rounded once: no atomics,
+// deterministic, and the same bits under any order. fp32 keeps CUDA-core
+// FMAs over 64 x 64 tiles with the same rows and offset list. The TPU
+// kernel's window DMAs, one-hot matmul gathers, overflow residual pass,
+// identity fast path and 128-lane channel padding existed because Mosaic
+// cannot gather rows by index; here a row is gathered by its index.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include "tiles.cuh"
+#include "igemm.cuh"
 
 namespace {
 
-constexpr int BM = 64;  // output rows per block
-constexpr int BN = 64;  // output channels per block
-
-// ---- fp32: CUDA cores, 256 threads, 4x4 outputs a thread -------------------
-
-constexpr int F_BK = 16;  // input channels per shared-memory slice
-constexpr int F_THREADS = 256;
+using namespace wct::igemm;
 
 __global__ void __launch_bounds__(F_THREADS)
-igemm_fwd_f32(const float* __restrict__ x,            // [B, N_in, C_in]
-              const float* __restrict__ w,            // [K, C_in, C_out]
-              const int32_t* __restrict__ table,      // [B, K, N_out]
-              float* __restrict__ out,                // [B, N_out, C_out]
-              int n_in, int n_out, int k_vol, int c_in, int c_out) {
-  __shared__ int32_t rows[BM];
-  __shared__ float As[F_BK][BM];      // gathered x slice, transposed
-  __shared__ float Bs[F_BK][BN + 4];  // w[k] slice
-
-  const int t = threadIdx.x;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int ty = t / 16, tx = t % 16;  // 16 x 16 threads, 4 x 4 outputs each
-
-  const float* xb = x + int64_t(b) * n_in * c_in;
-  float acc[4][4] = {};
-
-  // Loader roles: A (64 rows x 16 ch): 4 threads per row, 4 channels each.
-  const int a_row = t / 4, a_col = (t % 4) * 4;
-  // B (16 ch x 64 cols): 16 threads per channel row, 4 columns each.
-  const int b_row = t / 16, b_col = (t % 16) * 4;
-
-  for (int k = 0; k < k_vol; ++k) {
-    int valid = 0;
-    if (t < BM) {
-      const int o = m0 + t;
-      const int32_t r = o < n_out ? table[(int64_t(b) * k_vol + k) * n_out + o] : -1;
-      rows[t] = r;
-      valid = r >= 0;
-    }
-    if (!__syncthreads_or(valid)) continue;  // no pair of this offset in the tile
-
-    const int32_t src = rows[a_row];
-    const float* xrow = src >= 0 ? xb + int64_t(src) * c_in : nullptr;
-    const float* wk = w + int64_t(k) * c_in * c_out;
-    for (int c0 = 0; c0 < c_in; c0 += F_BK) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + a_col + j;
-        As[a_col + j][a_row] = (xrow != nullptr && c < c_in) ? xrow[c] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = c0 + b_row;
-        const int col = n0 + b_col + j;
-        Bs[b_row][b_col + j] = (c < c_in && col < c_out) ? wk[int64_t(c) * c_out + col] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < F_BK; ++kk) {
-        float a[4], bv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = As[kk][ty * 4 + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bv[j] = Bs[kk][tx * 4 + j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-  float* ob = out + int64_t(b) * n_out * c_out;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int o = m0 + ty * 4 + i;
-    if (o >= n_out) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx * 4 + j;
-      if (col < c_out) ob[int64_t(o) * c_out + col] = acc[i][j];
-    }
-  }
+igemm_fwd_f32(const float* __restrict__ x, const float* __restrict__ w,
+              const int32_t* __restrict__ table, const int32_t* __restrict__ order,
+              float* __restrict__ out, int n_in, int n_out, int k_vol, int c_in, int c_out,
+              bool w_trans, unsigned long long* work) {
+  __shared__ Slab<BM> sl;
+  __shared__ F32Smem sm;
+  gather_gemm_f32(sl, sm, x, w, table, order, out, blockIdx.z, blockIdx.x * BM, blockIdx.y * 64,
+                  n_in, n_out, k_vol, c_in, c_out, false, w_trans, work);
 }
 
-// ---- bf16: tensor cores, 4 warps of 32 x 32 outputs -------------------------
+template <int W, int NWG>
+constexpr int kStages = Ring<W, NWG>::stages(3, int(sizeof(Slab<NWG * BM>)));
 
-using bf16 = __nv_bfloat16;
-constexpr int H_BK = 32;  // input channels per shared-memory slice
-constexpr int H_THREADS = 128;
-constexpr int A_LD = H_BK + 8;  // padded strides (elements), multiples of 8
-constexpr int B_LD = BN + 8;
-constexpr int C_LD = BN + 4;
-using wct::copy16;
+template <int W, int NWG>
+__global__ void __launch_bounds__(NWG * WG, 1)
+igemm_fwd_bf16(const bf16* __restrict__ x, const unsigned char* __restrict__ wimg,
+               const int32_t* __restrict__ table, const int32_t* __restrict__ order,
+               bf16* __restrict__ out, int n_in, int n_out, int k_vol, int c_in, int c_out,
+               bool vec, unsigned long long* work) {
+  __shared__ Slab<NWG * BM> sl;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024u - smem_addr(smem_raw) % 1024u) % 1024u);
+  gather_gemm_bf16<W, NWG, kStages<W, NWG>>(sl, ring, x, wimg, table, order, out, blockIdx.z,
+                                            blockIdx.x * NWG * BM, blockIdx.y, gridDim.y, n_in,
+                                            n_out, k_vol, c_in, c_out, vec, work);
+}
 
-// VEC: C_in and C_out are multiples of 8 and x, w are 16-byte aligned, so
-// every full 16-element row segment can move as two 16-byte vectors.
-template <bool VEC>
-__global__ void __launch_bounds__(H_THREADS)
-igemm_fwd_bf16(const bf16* __restrict__ x, const bf16* __restrict__ w,
-               const int32_t* __restrict__ table, bf16* __restrict__ out,
-               int n_in, int n_out, int k_vol, int c_in, int c_out) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ int32_t rows[BM];
-  __shared__ __align__(32) bf16 As[BM][A_LD];    // gathered x slice, row-major
-  __shared__ __align__(32) bf16 Bs[H_BK][B_LD];  // w[k] slice, row-major
-  __shared__ __align__(32) float Cs[BM][C_LD];   // epilogue staging
+template <int W, int NWG>
+cudaError_t launch_bf16(const bf16* x, const unsigned char* w, const int32_t* table,
+                        const int32_t* order, bf16* out, int b, int n_in, int n_out, int k_vol,
+                        int c_in, int c_out, int n_chunks, bool vec,
+                        unsigned long long* work, cudaStream_t stream) {
+  const int bytes = 1024 + kStages<W, NWG> * Ring<W, NWG>::STAGE;
+  const cudaError_t err = allow_smem<igemm_fwd_bf16<W, NWG>>(bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n_out + NWG * BM - 1) / (NWG * BM), n_chunks, b);
+  igemm_fwd_bf16<W, NWG><<<grid, NWG * WG, bytes, stream>>>(x, w, table, order, out, n_in,
+                                                            n_out, k_vol, c_in, c_out, vec, work);
+  return cudaGetLastError();
+}
 
-  const int t = threadIdx.x;
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int warp = t / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;  // warp's 32 x 32 quadrant
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const bf16* xb = x + int64_t(b) * n_in * c_in;
-  // Loader roles: A (64 rows x 32 ch): 2 threads per row, 16 channels each.
-  const int a_row = t / 2, a_col = (t % 2) * 16;
-  // B (32 ch x 64 cols): 4 threads per channel row, 16 columns each.
-  const int b_row = t / 4, b_col = (t % 4) * 16;
-  const int b_ok = c_out - (n0 + b_col);  // columns of this segment inside C_out
-
-  for (int k = 0; k < k_vol; ++k) {
-    int valid = 0;
-    if (t < BM) {
-      const int o = m0 + t;
-      const int32_t r = o < n_out ? table[(int64_t(b) * k_vol + k) * n_out + o] : -1;
-      rows[t] = r;
-      valid = r >= 0;
-    }
-    if (!__syncthreads_or(valid)) continue;  // no pair of this offset in the tile
-
-    const int32_t src = rows[a_row];
-    const bf16* xrow = xb + int64_t(src < 0 ? 0 : src) * c_in;
-    const bf16* wk = w + int64_t(k) * c_in * c_out;
-    for (int c0 = 0; c0 < c_in; c0 += H_BK) {
-      const int a_ok = src < 0 ? 0 : c_in - (c0 + a_col);
-      copy16<VEC>(&As[a_row][a_col], xrow + c0 + a_col, a_ok);
-      const int c = c0 + b_row;
-      copy16<VEC>(&Bs[b_row][b_col], wk + int64_t(c < c_in ? c : 0) * c_out + n0 + b_col,
-                  c < c_in ? b_ok : 0);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < H_BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &As[wm + i * 16][kk], A_LD);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], &Bs[kk][wn + j * 16], B_LD);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  bf16* ob = out + int64_t(b) * n_out * c_out;
-  for (int idx = t; idx < BM * BN; idx += H_THREADS) {
-    const int r = idx / BN, col = idx % BN;
-    const int o = m0 + r, oc = n0 + col;
-    if (o < n_out && oc < c_out) ob[int64_t(o) * c_out + oc] = __float2bfloat16(Cs[r][col]);
-  }
+template <int W>
+cudaError_t launch_width(const bf16* x, const unsigned char* w, const int32_t* table,
+                         const int32_t* order, bf16* out, int b, int n_in, int n_out, int k_vol,
+                         int c_in, int c_out, int n_chunks, bool vec,
+                         unsigned long long* work, cudaStream_t stream) {
+  if (warpgroups(W, n_out, n_chunks * b) == 2)
+    return launch_bf16<W, 2>(x, w, table, order, out, b, n_in, n_out, k_vol, c_in, c_out,
+                             n_chunks, vec, work, stream);
+  return launch_bf16<W, 1>(x, w, table, order, out, b, n_in, n_out, k_vol, c_in, c_out,
+                           n_chunks, vec, work, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it).
-extern "C" int wct_igemm_fwd(const void* x, const void* w, const int32_t* table, void* out,
-                             int b, int n_in, int n_out, int k_vol, int c_in, int c_out,
-                             int dtype, cudaStream_t stream) {
+// Bytes of the scratch wct_igemm_fwd needs for bf16 (the weight image) at
+// n_out output rows of b scenes.
+extern "C" int64_t wct_igemm_image_bytes(int k_vol, int c_in, int c_out, int n_out, int b) {
+  int nc = 0;
+  const int width = chunk_width(c_out, n_out, b, &nc);
+  return image_bytes(k_vol, c_in, width, nc);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x, w and out share it). w: [K, c_in,
+// c_out], or with w_trans [K, c_out, c_in], whose transpose the product
+// takes (dgrad). order: [B, N_out] int32, each scene's rows in the order
+// the tiles take them (a permutation of 0 .. N_out - 1), or null for the
+// index order. img: bf16 scratch of wct_igemm_image_bytes bytes, 16-byte
+// aligned (null for fp32). work: one counter, to which the launch adds its
+// tile work (64 rows for each (tile, offset) computed).
+extern "C" int wct_igemm_fwd(const void* x, const void* w, const int32_t* table,
+                             const int32_t* order, void* out, void* img, int b, int n_in,
+                             int n_out, int k_vol, int c_in, int c_out, int w_trans, int dtype,
+                             unsigned long long* work, cudaStream_t stream) {
   if (b == 0 || n_out == 0 || c_out == 0) return 0;
-  const dim3 grid((n_out + BM - 1) / BM, (c_out + BN - 1) / BN, b);
   if (dtype == 0) {
+    const dim3 grid((n_out + BM - 1) / BM, (c_out + 63) / 64, b);
     igemm_fwd_f32<<<grid, F_THREADS, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w), table,
-        static_cast<float*>(out), n_in, n_out, k_vol, c_in, c_out);
-  } else if (dtype == 1) {
-    const bool vec = wct::vec_ok(c_in, c_out, x, w);
-    const bf16* xh = static_cast<const bf16*>(x);
-    const bf16* wh = static_cast<const bf16*>(w);
-    bf16* oh = static_cast<bf16*>(out);
-    if (vec)
-      igemm_fwd_bf16<true><<<grid, H_THREADS, 0, stream>>>(xh, wh, table, oh, n_in, n_out,
-                                                          k_vol, c_in, c_out);
-    else
-      igemm_fwd_bf16<false><<<grid, H_THREADS, 0, stream>>>(xh, wh, table, oh, n_in, n_out,
-                                                           k_vol, c_in, c_out);
-  } else {
-    return int(cudaErrorInvalidValue);
+        static_cast<const float*>(x), static_cast<const float*>(w), table, order,
+        static_cast<float*>(out), n_in, n_out, k_vol, c_in, c_out, w_trans != 0, work);
+    return int(cudaGetLastError());
   }
-  return int(cudaGetLastError());
+  if (dtype != 1) return int(cudaErrorInvalidValue);
+  const bf16* xh = static_cast<const bf16*>(x);
+  const bf16* wh = static_cast<const bf16*>(w);
+  bf16* oh = static_cast<bf16*>(out);
+  const bool vec = wct::igemm::vec_ok(c_in, c_out, x, w, out);
+  int nc = 0;
+  const int width = chunk_width(c_out, n_out, b, &nc);
+  unsigned char* wimg = static_cast<unsigned char*>(img);
+  pack_weights<<<k_vol * ((c_in + BK - 1) / BK) * nc, 256, 0, stream>>>(
+      wh, wimg, k_vol, c_in, c_out, width, nc, false, w_trans != 0);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return int(err);
+#define WCT_W(WIDTH)                                                                         \
+  case WIDTH:                                                                                \
+    return int(launch_width<WIDTH>(xh, wimg, table, order, oh, b, n_in, n_out, k_vol, c_in, \
+                                   c_out, nc, vec, work, stream));
+  switch (width) {
+    WCT_W(32) WCT_W(64) WCT_W(96) WCT_W(128) WCT_W(160) WCT_W(192) WCT_W(224) WCT_W(256)
+    default: return int(cudaErrorInvalidValue);
+  }
+#undef WCT_W
 }

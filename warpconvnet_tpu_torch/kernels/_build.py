@@ -37,15 +37,15 @@ _SIGNATURES = {
     # int wct_kernel_map_probe(keys, in_nv, n, out_coords, out_nv, m, desc,
     #                          n_groups, k, sx, sy, sz, b, table, counts, stream)
     "wct_kernel_map_probe": [_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
-    # int wct_igemm_fwd(x, w, table, out, b, n_in, n_out, k, c_in, c_out,
-    #                   dtype, stream)
-    "wct_igemm_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_igemm_fwd(x, w, table, order, out, img, b, n_in, n_out, k, c_in,
+    #                   c_out, w_trans, dtype, work, stream)
+    "wct_igemm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # int wct_igemm_wgrad(x, g, table, dw, b, n_in, n_out, k, c_in, c_out,
     #                     dtype, stream)
     "wct_igemm_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # int wct_igemm_bwd_fused(x, g, w, table, dx, dw, b, n, k, c_in, c_out,
-    #                         dtype, stream)
-    "wct_igemm_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_igemm_bwd_fused(x, g, w, table, order, dx, dw, img, b, n, k,
+    #                         c_in, c_out, dtype, counts, stream)
+    "wct_igemm_bwd_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # int wct_depth_fwd(x, w, table, out, b, n_in, n_out, k, c, dtype, stream)
     "wct_depth_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # int wct_depth_wgrad(x, g, table, dw, b, n_in, n_out, k, c, dtype, stream)
@@ -146,6 +146,9 @@ def load_library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.wct_error_string.argtypes = [ctypes.c_int]
             lib.wct_error_string.restype = ctypes.c_char_p
+            # int64 wct_igemm_image_bytes(k, c_in, c_out, n_out, b)
+            lib.wct_igemm_image_bytes.argtypes = [_I, _I, _I, _I, _I]
+            lib.wct_igemm_image_bytes.restype = _L
             _lib = lib
         return _lib
 

@@ -15,11 +15,22 @@ accumulation; conv outputs and dx come back in the input dtype, dw in fp32.
 Each wrapper runs its CUDA kernel (``csrc/implicit_gemm*.cu``) on CUDA
 tensors and its ``*_plain`` version on CPU tensors, counts its launches in
 ``.launches``, and raises on what its kernel does not take.
+
+K2 and K4 take their tiles of ``TILE_ROWS`` rows in a row order of the map
+(``order`` [B, N] int32, a permutation of each scene's rows; None: the
+index order), such as ``ops.kernel_map.row_order``'s, which groups rows with
+equal offset masks so that a tile meets few offsets. The order changes
+which rows share a tile, never a result: K2's output has the same bits
+under any order. The plain versions take no order.
+
+The kernels count what they did on the card (:func:`work_counts`): K2's
+and K4's tile work and the floats K4 adds into dw with atomics, which
+:func:`tile_work` and :func:`bwd_fused_dw_atomics` model on the host.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +38,9 @@ import torch
 from warpconvnet_tpu_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TILE_ROWS = 64  # rows of a K2 / K4 tile (csrc/igemm.cuh BM)
+DW_ROWS = 4096  # rows of a bf16 K4 weight-gradient chunk (csrc/igemm.cuh DW_ROWS)
+F_DW_ROWS = 2048  # rows of an fp32 one (csrc/igemm.cuh F_DW_ROWS)
 
 
 def offsets_symmetric(offsets: np.ndarray) -> bool:
@@ -111,6 +125,71 @@ def implicit_gemm_bwd_fused_plain(
     return dx, implicit_gemm_wgrad_plain(x, g, table, accum_dtype)
 
 
+def tile_work(
+    table: torch.Tensor,  # [B, K, N] int32
+    order: Optional[torch.Tensor] = None,  # [B, N] int32, or None for the index order
+    tile_rows: int = TILE_ROWS,
+) -> Tuple[int, int]:
+    """(tile work, useful pairs) of K2 on ``table`` with its tiles taken in
+    ``order``: a tile of ``tile_rows`` rows computes all its rows for every
+    offset that has a pair among them, so the work is tile_rows x the
+    non-empty (tile, offset) pairs; the useful pairs are the entries >= 0.
+    Their ratio is the share of K2's tensor-core work that adds zeros. A
+    host model of the kernels' count (:func:`work_counts`)."""
+    b, k, n = table.shape
+    valid = table >= 0
+    if order is not None:
+        valid = torch.gather(valid, 2, order.long()[:, None, :].expand(b, k, n))
+    valid = torch.nn.functional.pad(valid, (0, (-n) % tile_rows))
+    busy = valid.reshape(b, k, -1, tile_rows).any(-1)
+    return int(busy.sum()) * tile_rows, int(table.ge(0).sum())
+
+
+def bwd_fused_dw_atomics(
+    table: torch.Tensor, c_in: int, c_out: int, chunk_rows: int = DW_ROWS
+) -> int:
+    """Floats that bf16 K4 adds into dw with atomics on ``table``, a host
+    model of the kernel's count (:func:`work_counts` ``fused_dw_floats``):
+    every (scene, offset, chunk of ``chunk_rows`` rows) with a pair flushes
+    its C_in x C_out share of dw[k] once (fp32: ``chunk_rows`` F_DW_ROWS).
+    With ``chunk_rows`` 256 it models the earlier design's flushes, one per
+    256-row chunk and offset."""
+    b, k, n = table.shape
+    valid = torch.nn.functional.pad(table >= 0, (0, (-n) % chunk_rows))
+    return int(valid.reshape(b, k, -1, chunk_rows).any(-1).sum()) * c_in * c_out
+
+
+_COUNT_KEYS = ("fwd_tile_work", "dgrad_tile_work", "fused_tile_work", "fused_dw_floats")
+_work_counts: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counter(device: torch.device, key: str) -> int:
+    """Address of ``key``'s int64 counter on ``device`` (the kernels add to it)."""
+    if device not in _work_counts:
+        _work_counts[device] = torch.zeros(len(_COUNT_KEYS), dtype=torch.int64, device=device)
+    return _work_counts[device].data_ptr() + 8 * _COUNT_KEYS.index(key)
+
+
+def work_counts(device) -> Dict[str, int]:
+    """What the kernels did on ``device`` since :func:`reset_work_counts`:
+    the tile work of K2 (``fwd_tile_work``), of K2 as dgrad and of K4's dx
+    (64 rows for each (tile, offset) a tile computed, as :func:`tile_work`
+    counts it), and the floats K4's dw blocks added into dw
+    (``fused_dw_floats``, as :func:`bwd_fused_dw_atomics` counts them).
+    Synchronises."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _work_counts:
+        return dict.fromkeys(_COUNT_KEYS, 0)
+    return dict(zip(_COUNT_KEYS, _work_counts[device].tolist()))
+
+
+def reset_work_counts() -> None:
+    for c in _work_counts.values():
+        c.zero_()
+
+
 def _cuda_args(name, accum_dtype, tensors, table):
     """Validate what every kernel of this module needs: CUDA, fp32
     accumulation, one float dtype, an int32 table, 3-D contiguous inputs on
@@ -137,20 +216,52 @@ def _cuda_args(name, accum_dtype, tensors, table):
     return _build.load_library(), torch.cuda.current_stream(x.device).cuda_stream
 
 
-def _launch_fwd(name, x, weight, table, accum_dtype) -> torch.Tensor:
+def _order_ptr(name, order, table) -> Optional[int]:
+    """The order's pointer (None for the index order) after checking that it
+    is an int32 [B, N_out] tensor on the table's device."""
+    if order is None:
+        return None
+    b, _, n = table.shape
+    if order.dtype != torch.int32 or tuple(order.shape) != (b, n):
+        raise ValueError(
+            f"{name}: order must be int32 [{b}, {n}], got {order.dtype} {tuple(order.shape)}"
+        )
+    if order.device != table.device or not order.is_contiguous():
+        raise ValueError(f"{name}: order must be contiguous on the table's device")
+    return order.data_ptr()
+
+
+def _weight_image(lib, x, k_vol, c_in, c_out, n_out) -> Optional[torch.Tensor]:
+    """Scratch for the bf16 kernels' weight image (``csrc/igemm.cuh``
+    ``pack_weights``: each step's weight slice laid out as the kernel's
+    shared-memory stage reads it, one bulk copy a step); None for fp32."""
+    if x.dtype != torch.bfloat16:
+        return None
+    nbytes = lib.wct_igemm_image_bytes(k_vol, c_in, c_out, n_out, x.shape[0])
+    return torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+
+
+def _launch_fwd(name, x, weight, table, accum_dtype, order, w_trans=False) -> torch.Tensor:
+    """K2 on (x, w, table), w [K, C_in, C_out]; with ``w_trans`` the weight
+    is [K, C_out, C_in] and the product takes its transpose (dgrad)."""
     lib, stream = _cuda_args(name, accum_dtype, (x, weight), table)
     b, n_in, c_in = x.shape
-    k_vol, c_in_w, c_out = weight.shape
+    k_vol = weight.shape[0]
+    c_in_w, c_out = (weight.shape[2], weight.shape[1]) if w_trans else weight.shape[1:]
     if c_in_w != c_in or table.shape[0] != b or table.shape[1] != k_vol:
         raise ValueError(
             f"{name}: shapes x {tuple(x.shape)}, weight {tuple(weight.shape)}, "
             f"table {tuple(table.shape)} disagree"
         )
     n_out = table.shape[2]
+    order_ptr = _order_ptr(name, order, table)
     out = torch.empty((b, n_out, c_out), dtype=x.dtype, device=x.device)
+    img = _weight_image(lib, x, k_vol, c_in, c_out, n_out)
     rc = lib.wct_igemm_fwd(
-        x.data_ptr(), weight.data_ptr(), table.data_ptr(), out.data_ptr(),
-        b, n_in, n_out, k_vol, c_in, c_out, _DTYPE_CODES[x.dtype], stream,
+        x.data_ptr(), weight.data_ptr(), table.data_ptr(), order_ptr, out.data_ptr(),
+        None if img is None else img.data_ptr(), b, n_in, n_out, k_vol, c_in, c_out,
+        int(w_trans), _DTYPE_CODES[x.dtype],
+        _counter(x.device, "dgrad_tile_work" if w_trans else "fwd_tile_work"), stream,
     )
     _build.check(lib, rc, name)
     return out
@@ -161,11 +272,13 @@ def implicit_gemm_fwd(
     weight: torch.Tensor,
     table: torch.Tensor,
     accum_dtype: torch.dtype = torch.float32,
+    order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K2 on CUDA tensors, :func:`implicit_gemm_fwd_plain` on CPU tensors."""
+    """K2 on CUDA tensors, its tiles in ``order`` (the table's output rows),
+    :func:`implicit_gemm_fwd_plain` on CPU tensors."""
     if x.device.type == "cpu":
         return implicit_gemm_fwd_plain(x, weight, table, accum_dtype)
-    out = _launch_fwd("implicit_gemm_fwd", x, weight, table, accum_dtype)
+    out = _launch_fwd("implicit_gemm_fwd", x, weight, table, accum_dtype, order)
     implicit_gemm_fwd.launches += 1
     return out
 
@@ -175,14 +288,15 @@ def implicit_gemm_dgrad(
     weight: torch.Tensor,
     rev: torch.Tensor,
     accum_dtype: torch.dtype = torch.float32,
+    order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K2 on ``(g, w^T, rev)`` on CUDA tensors (counted here, not in
+    """K2 on ``(g, w^T, rev)`` on CUDA tensors, its tiles in ``order`` (rev's
+    output rows, the conv's input rows; counted here, not in
     ``implicit_gemm_fwd.launches``), :func:`implicit_gemm_dgrad_plain` on
     CPU tensors."""
     if g.device.type == "cpu":
         return implicit_gemm_dgrad_plain(g, weight, rev, accum_dtype)
-    wt = weight.transpose(1, 2).contiguous()
-    dx = _launch_fwd("implicit_gemm_dgrad", g, wt, rev, accum_dtype)
+    dx = _launch_fwd("implicit_gemm_dgrad", g, weight, rev, accum_dtype, order, w_trans=True)
     implicit_gemm_dgrad.launches += 1
     return dx
 
@@ -223,10 +337,11 @@ def implicit_gemm_bwd_fused(
     table: torch.Tensor,
     offsets: np.ndarray,
     accum_dtype: torch.dtype = torch.float32,
+    order: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K4 on CUDA tensors, :func:`implicit_gemm_bwd_fused_plain` on CPU
-    tensors. Raises unless ``table`` is a self-map (n_in == n_out) over
-    symmetric ``offsets``."""
+    """K4 on CUDA tensors, its dx tiles in ``order`` (the table's rows),
+    :func:`implicit_gemm_bwd_fused_plain` on CPU tensors. Raises unless
+    ``table`` is a self-map (n_in == n_out) over symmetric ``offsets``."""
     if x.device.type == "cpu":
         return implicit_gemm_bwd_fused_plain(x, g, weight, table, offsets, accum_dtype)
     name = "implicit_gemm_bwd_fused"
@@ -239,12 +354,16 @@ def implicit_gemm_bwd_fused(
             f"{name}: shapes x {tuple(x.shape)}, g {tuple(g.shape)}, weight "
             f"{tuple(weight.shape)}, table {tuple(table.shape)} disagree"
         )
+    order_ptr = _order_ptr(name, order, table)
+    # dx is K2 on (g, w[K-1-k]^T, table): the kernel flips the offset axis
+    # and reads w transposed.
     dx = torch.empty_like(x)
     dw = torch.zeros((k_vol, c_in, c_out), dtype=torch.float32, device=x.device)
+    img = _weight_image(lib, x, k_vol, c_out, c_in, n)  # dx's image: the product with w^T
     rc = lib.wct_igemm_bwd_fused(
-        x.data_ptr(), g.data_ptr(), weight.data_ptr(), table.data_ptr(),
-        dx.data_ptr(), dw.data_ptr(), b, n, k_vol, c_in, c_out,
-        _DTYPE_CODES[x.dtype], stream,
+        x.data_ptr(), g.data_ptr(), weight.data_ptr(), table.data_ptr(), order_ptr,
+        dx.data_ptr(), dw.data_ptr(), None if img is None else img.data_ptr(), b, n, k_vol,
+        c_in, c_out, _DTYPE_CODES[x.dtype], _counter(x.device, "fused_tile_work"), stream,
     )
     _build.check(lib, rc, name)
     implicit_gemm_bwd_fused.launches += 1

@@ -7,6 +7,14 @@ parity partition. Every conv that uses a table, whatever its stride or
 direction, runs the implicit-GEMM kernel K2 forward through
 :class:`ConvGemm`; 1x1 convs are a matmul.
 
+A map that a conv builds gets a row order of its output rows and one of
+its input rows (:meth:`BatchedPairTable.with_orders`, from
+:func:`~warpconvnet_tpu_torch.ops.kernel_map.row_order`: rows grouped by
+offset mask), computed once, where the conv builds the map; every K2 and
+K4 call on the map, and every K2 dgrad on its reverse, takes its tiles in
+that order, so that a 64-row tile meets few offsets. The depthwise and
+pooling paths, which build maps here too, read no order and compute none.
+
 Backward routing, one rule and no knob: a symmetric self-map (every 3^3
 submanifold conv) runs the fused K4; every other table (strided and
 transposed) runs K2 as dgrad through the reverse table and K3 for the
@@ -41,6 +49,7 @@ from warpconvnet_tpu_torch.ops.kernel_map import (
     parity_partition_applies,
     parity_strided_unique,
     reverse_tables,
+    row_order,
 )
 
 
@@ -49,12 +58,17 @@ class BatchedPairTable(NamedTuple):
 
     table [B, K, N_out] int32; rev [B, K, N_in] int32 (or None until built);
     offsets [K, 3] numpy; self_map: in and out are the same coordinate set.
+    order [B, N_out] and rev_order [B, N_in] int32: the row orders K2 and K4
+    take their tiles in on ``table`` and on ``rev`` (None: the index order,
+    until :meth:`with_orders`).
     """
 
     table: torch.Tensor
     rev: Optional[torch.Tensor]
     offsets: np.ndarray
     self_map: bool = False
+    order: Optional[torch.Tensor] = None
+    rev_order: Optional[torch.Tensor] = None
 
     @property
     def symmetric_self_map(self) -> bool:
@@ -72,11 +86,24 @@ class BatchedPairTable(NamedTuple):
             return self
         return self._replace(rev=reverse_tables(self.table, num_in))
 
+    def with_orders(self) -> "BatchedPairTable":
+        """This map with its row orders (itself if it has them). A
+        symmetric self-map's reverse, ``table.flip(1)``, has its rows' masks
+        reversed: the same classes, so one order serves both."""
+        if self.order is not None:
+            return self
+        order = row_order(self.table)
+        if self.rev is None:
+            return self._replace(order=order)
+        rev_order = order if self.symmetric_self_map else row_order(self.rev)
+        return self._replace(order=order, rev_order=rev_order)
+
     def reversed(self) -> "BatchedPairTable":
-        """Swap the in/out roles: the transposed-conv map."""
+        """Swap the in/out roles (and the row orders): the transposed-conv map."""
         if self.rev is None:
             raise ValueError("call with_reverse(num_in) first")
-        return BatchedPairTable(self.rev, self.table, -self.offsets, self.self_map)
+        return BatchedPairTable(self.rev, self.table, -self.offsets, self.self_map,
+                                self.rev_order, self.order)
 
 
 def build_batched_pair_table(
@@ -147,37 +174,41 @@ class ConvGemm(torch.autograd.Function):
 
     Forward: K2. Backward: K4 when ``offsets`` is given (a symmetric
     self-map, whose reverse is ``table.flip(1)``); otherwise K2 as dgrad
-    through ``rev`` and K3. dw comes back in fp32 (``accum_dtype``) and is
-    cast to the weight's dtype, dx to the features' dtype. On CPU tensors
-    every kernel wrapper runs its plain version, through the same routing.
+    through ``rev`` and K3. K2 and K4 take their tiles in ``order`` (the
+    table's rows), K2-dgrad in ``rev_order``. dw comes back in fp32
+    (``accum_dtype``) and is cast to the weight's dtype, dx to the
+    features' dtype. On CPU tensors every kernel wrapper runs its plain
+    version, through the same routing.
     """
 
     @staticmethod
-    def forward(ctx, features, weight, table, rev, offsets, accum_dtype):
-        ctx.save_for_backward(features, weight, table, rev)
+    def forward(ctx, features, weight, table, rev, offsets, accum_dtype, order, rev_order):
+        ctx.save_for_backward(features, weight, table, rev, order, rev_order)
         ctx.offsets = offsets
         ctx.accum_dtype = accum_dtype
-        return implicit_gemm.implicit_gemm_fwd(features, weight, table, accum_dtype)
+        return implicit_gemm.implicit_gemm_fwd(features, weight, table, accum_dtype, order=order)
 
     @staticmethod
     def backward(ctx, g):
-        features, weight, table, rev = ctx.saved_tensors
+        features, weight, table, rev, order, rev_order = ctx.saved_tensors
         acc = ctx.accum_dtype
         g = g.contiguous()
         need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
         if ctx.offsets is not None:
             dx, dw = implicit_gemm.implicit_gemm_bwd_fused(
-                features, g, weight, table, ctx.offsets, acc
+                features, g, weight, table, ctx.offsets, acc, order=order
             )
         else:
             if need_dx:
-                dx = implicit_gemm.implicit_gemm_dgrad(g, weight, rev.contiguous(), acc)
+                dx = implicit_gemm.implicit_gemm_dgrad(
+                    g, weight, rev.contiguous(), acc, order=rev_order
+                )
             if need_dw:
                 dw = implicit_gemm.implicit_gemm_wgrad(features, g, table, acc)
         dx = dx.to(features.dtype) if need_dx else None
         dw = dw.to(weight.dtype) if need_dw else None
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None, None
 
 
 def conv_gemm(
@@ -191,13 +222,14 @@ def conv_gemm(
     With no gradient to record (inference mode, ``no_grad``, or neither
     input requiring one) K2 runs without the Function's overhead."""
     tab = table.table.contiguous()
+    order, rev_order = table.order, table.rev_order
     if not (torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad)):
-        return implicit_gemm.implicit_gemm_fwd(features, weight, tab, accum_dtype)
+        return implicit_gemm.implicit_gemm_fwd(features, weight, tab, accum_dtype, order=order)
     if table.symmetric_self_map:
-        return ConvGemm.apply(features, weight, tab, None, table.offsets, accum_dtype)
+        return ConvGemm.apply(features, weight, tab, None, table.offsets, accum_dtype, order, None)
     if table.rev is None:
         raise ValueError("the backward of a map that is not a symmetric self-map needs rev")
-    return ConvGemm.apply(features, weight, tab, table.rev, None, accum_dtype)
+    return ConvGemm.apply(features, weight, tab, table.rev, None, accum_dtype, order, rev_order)
 
 
 def block_diagonal(weight: torch.Tensor) -> torch.Tensor:
@@ -267,6 +299,7 @@ def spatially_sparse_conv(
         oc, onv, table, out_ts = generate_output_coords_and_kernel_map(
             voxels, ks, st, out_coords, out_capacity
         )
+        table = table.with_orders()
     if out_coords is not None:
         out_sorted = out_coords.lex_sorted
     elif any(s != 1 for s in st):

@@ -60,6 +60,30 @@ def reverse_tables(table: torch.Tensor, num_in: int) -> torch.Tensor:
     return rev[:, :, :num_in].contiguous()
 
 
+MASK_BITS = 62  # offsets that enter a row's order key
+_mask_bits = {}  # (offsets, dtype, device) -> [offsets] powers of two
+
+
+def row_order(table: torch.Tensor) -> torch.Tensor:
+    """[B, K, N] table -> [B, N] int32: each scene's rows ordered by their
+    offset mask (bit k set where ``table[b, k, row] >= 0``), the order in
+    which K2 and K4 take their tiles (``kernels/implicit_gemm.py``).
+
+    Rows with equal masks are contiguous, in index order (a stable sort),
+    and rows with no pair (pad rows) come last. A map with more than
+    ``MASK_BITS`` offsets is keyed by its first ``MASK_BITS``. Computed on
+    the table's device in a few launches, a sort among them (int32 keys up
+    to 30 offsets)."""
+    kk = min(table.shape[1], MASK_BITS)
+    dtype = torch.int32 if kk <= 30 else torch.int64
+    key = (kk, dtype, table.device)
+    if key not in _mask_bits:
+        _mask_bits[key] = 2 ** torch.arange(kk, dtype=dtype, device=table.device)
+    mask = ((table[:, :kk] >= 0) * _mask_bits[key][:, None]).sum(1, dtype=dtype)
+    mask.masked_fill_(mask == 0, torch.iinfo(dtype).max)  # no pair: last
+    return torch.sort(mask, dim=1, stable=True).indices.to(torch.int32)
+
+
 class PairTable(NamedTuple):
     """Single-scene kernel map: table [K, N_out], offsets [K, 3], num_in."""
 
