@@ -46,7 +46,10 @@ Phases (any failure exits non-zero):
   9. depthwise kernels: K6 forward on the bench pair's 7^3 map at C 96
      (bf16, fp32) and on the L0 3^3 map at C 96 and 384; K6 as dgrad and K7
      on the L0 -> L1 2^3 parity map and its reverse; K8 on the 7^3 and 3^3
-     self-maps. Each against its plain version, timed.
+     self-maps. Each against its plain version, timed; K8's dx also with
+     the bits of K6 on (g, w flipped), and the floats its blocks add into
+     dw (its own count, ``depthwise_fma.work_counts``) held against the
+     host model ``bwd_fused_dw_adds``.
  10. convnext: SparseConvNeXtBlock(96, kernel 7) on the bench scene pair
      (bf16 features, fp32 parameters, seeded weights): fwd+bwd of
      sum(out^2) with 1 K1, 1 K6 and 1 K8 launch, an inference forward with
@@ -996,12 +999,19 @@ def phase_depthwise(vox, table3):
             x = rand((B, n0, c), dtype) * mask
             g = rand((B, n0, c), dtype) * mask
             w = rand((k, c), torch.float32, k ** -0.5)
+            dw.reset_work_counts()
             dx, dwt = dw.depthwise_fma_bwd_fused(x, g, w, table, offsets)
+            adds = dw.work_counts(x.device)["fused_dw_floats"]
+            plan = dw.depthwise_fma_bwd_fused.plan
+            model = dw.bwd_fused_dw_adds(table, c, plan["chunk_rows"])
             ref_dx, ref_dw = dw.depthwise_fma_bwd_fused_plain(x, g, w, table, offsets)
+            k6_dx = dw.depthwise_fma_fwd(g, w.flip(0).contiguous(), table)
             torch.cuda.synchronize()
             torch.testing.assert_close(dx.float(), ref_dx.float(), **K2_TOL[dtype])
             w_err = rel_err(dwt, ref_dw)
             check(w_err <= DW_TOL, f"K8 dw relative error {w_err:.3e} > {DW_TOL}")
+            check(adds == model, f"K8 {label}: {adds} floats added into dw, host model {model}")
+            check(torch.equal(dx, k6_dx), f"K8 {label}: dx differs from K6 on (g, w flipped)")
             dx_err = float((dx.float() - ref_dx.float()).abs().max())
             ms = cuda_ms(lambda: dw.depthwise_fma_bwd_fused(x, g, w, table, offsets))
             plain_ms = cuda_ms(lambda: dw.depthwise_fma_bwd_fused_plain(x, g, w, table, offsets),
@@ -1010,13 +1020,15 @@ def phase_depthwise(vox, table3):
                                        dw.depthwise_fma_wgrad(x, g, table)))
             bd = bound(nbytes(x, g, w, table, dx, dwt), 4.0 * pairs * c, dtype)
             tag = f"C {c} {str(dtype)[6:]}"
-            log(f"K8 {label} {tag}: dx max_abs_err {dx_err:.3e}, dw rel err {w_err:.3e}; "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, K6-dgrad + K7 pair "
-                f"{pair_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+            log(f"K8 {label} {tag}: dx max_abs_err {dx_err:.3e} (the bits of K6 on (g, w "
+                f"flipped)), dw rel err {w_err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                f"ms, K6-dgrad + K7 pair {pair_ms:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]}); dw "
+                f"adds {adds} floats ({adds / 4:.0f} float4; host model {model}) from "
+                f"{plan['dw_blocks']} dw blocks of {plan['chunk_rows']} rows")
             if k == CONVNEXT_K ** 3:
                 entries["dfused"] = depth_entry("dfused", label, f"B={B} K={k} N={n0} {tag}",
                                                 dx_err, ms, plain_ms, bd)
-                entries["dfused"]["pair_ms"] = pair_ms
+                entries["dfused"].update(pair_ms=pair_ms, dw_floats=adds)
     return entries
 
 

@@ -157,3 +157,56 @@ def test_cuda_wrappers_raise_on_what_the_kernels_do_not_take():
     ):
         with pytest.raises(ValueError):
             call()
+
+
+def _short_scenes(kind, n=600):
+    """Two scenes of far fewer voxels than rows, so that the end of each
+    holds tiles of padding rows only: random voxels ("sub3": 300 and 100 of
+    a 14^3 grid) or a 6^3 cube and a quarter of it ("cube": every offset of
+    a 3^3 kernel valid at the cube's interior rows)."""
+    if kind == "cube":
+        pts = np.stack(np.meshgrid(*[np.arange(6)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        nv = np.array([len(pts), len(pts) // 4], np.int32)
+    else:
+        pts = np.unique(np.random.default_rng(0).integers(0, 14, (400, 3)), axis=0)
+        nv = np.array([300, 100], np.int32)
+    coords = np.full((2, n, 3), PAD_COORD, np.int32)
+    for i in range(2):
+        coords[i, : nv[i]] = pts[: nv[i]]
+    return Voxels.create(coords, np.zeros((2, n, 8), np.float32), nv, device="cpu").lex_sort()
+
+
+def _k8_dw_adds_brute_force(table, c, chunk_rows):
+    """K8's dw flushes counted one by one: C floats for each (scene,
+    offset, chunk of rows) that holds a pair."""
+    t = table.numpy()
+    b, k, n = t.shape
+    return c * sum(bool((t[s, kk, r0:r0 + chunk_rows] >= 0).any())
+                   for s in range(b) for kk in range(k) for r0 in range(0, n, chunk_rows))
+
+
+@pytest.mark.parametrize("chunk_rows", [16, 100, 4096])
+@pytest.mark.parametrize("kind", ["sub3", "cube", "all valid"])
+def test_k8_dw_add_model_matches_a_brute_force(kind, chunk_rows):
+    """bwd_fused_dw_adds (the host model of K8's own count) against a
+    chunk-by-chunk count, on a map with chunks of padding rows only, on one
+    whose interior rows have every offset valid, and on a table with every
+    entry valid (every chunk of every offset flushes)."""
+    if kind == "all valid":
+        table = torch.from_numpy(np.random.default_rng(1).integers(0, 90, (2, 27, 90), np.int32))
+    else:
+        table = generate_output_coords_and_kernel_map(_short_scenes(kind), 3)[2].table
+    n = table.shape[2]
+    chunks = -(-n // chunk_rows)
+    pad = torch.nn.functional.pad(table >= 0, (0, chunks * chunk_rows - n))
+    met = pad.reshape(2, 27, chunks, chunk_rows).any(-1)
+    if kind == "all valid":
+        assert bool(met.all())
+    elif chunk_rows < n:
+        assert not bool(met.all())  # some chunks hold padding rows only
+    if kind == "cube":
+        assert bool(((table >= 0).sum(1) == 27).any())  # rows with every offset valid
+    got = dfma.bwd_fused_dw_adds(table, 12, chunk_rows)
+    assert got == _k8_dw_adds_brute_force(table, 12, chunk_rows) > 0
+    if kind == "all valid":
+        assert got == 2 * 27 * chunks * 12

@@ -461,6 +461,95 @@ def test_k8_matches_plain_and_the_split_pair(cuda, dtype, c, ks):
     assert bool(pad.any()) and bool((dx[pad] == 0).all())
 
 
+def _unaligned(t):
+    """``t``'s values in a contiguous tensor whose base is one element past
+    a 16-byte boundary: the kernels' element-by-element path."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _tile_table(cuda, k, n_in=1000, n_out=1000):
+    """A [2, K, n_out] table (1000 or 1001 rows: not a multiple of a tile's
+    64 or 128): rows 0-127 of scene 0 have every offset valid, rows 128-255
+    none (a tile of -1 rows next to a full one), the rest 30% valid."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    idx = torch.randint(0, n_in, (2, k, n_out), generator=gen, device=cuda, dtype=torch.int32)
+    keep = torch.rand((2, k, n_out), generator=gen, device=cuda) < 0.3
+    keep[0, :, :128] = True
+    keep[0, :, 128:256] = False
+    return torch.where(keep, idx, -1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 12, 96, 100, 384, 1024])
+@pytest.mark.parametrize("k,n_out", [(27, 1000), (343, 1000), (27, 1001)])
+def test_k6_tiles_match_plain_and_give_the_same_bits_twice(cuda, dtype, c, k, n_out):
+    """1000 output rows (16-byte table rows, staged by cp.async) and 1001
+    (the table staged entry by entry)."""
+    table = _tile_table(cuda, k, n_out=n_out)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((2, 1000, c), generator=gen, device=cuda).to(dtype)
+    w = torch.randn((k, c), generator=gen, device=cuda) / k ** 0.5
+    out = depthwise_fma.depthwise_fma_fwd(x, w, table)
+    again = depthwise_fma.depthwise_fma_fwd(x, w, table)
+    ref = depthwise_fma.depthwise_fma_fwd_plain(x, w, table)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype])
+    assert torch.equal(_bits(out), _bits(again))
+    assert bool((out[0, 128:256] == 0).all())  # the tile of -1 rows adds exactly zero
+    if c == 96:  # the element-by-element path (unaligned bases) sums in the same order
+        assert torch.equal(_bits(depthwise_fma.depthwise_fma_fwd(_unaligned(x), w, table)),
+                           _bits(out))
+
+
+def _cube_map(cuda, ks, c, dtype):
+    """A 10^3 cube of voxels in scene 0 (rows with every offset valid) and a
+    6^3 cube in scene 1, in 1100 rows (tiles of padding rows only at the
+    ends), its ks^3 self-map and features."""
+    pts = lambda s: np.stack(np.meshgrid(*[np.arange(s)] * 3, indexing="ij"), -1).reshape(-1, 3)
+    coords = np.full((2, 1100, 3), PAD_COORD, np.int32)
+    coords[0, :1000], coords[1, :216] = pts(10), pts(6)
+    feats = np.random.default_rng(13).standard_normal((2, 1100, c)).astype(np.float32)
+    feats[0, 1000:] = feats[1, 216:] = 0
+    vox = Voxels.create(coords, feats, np.array([1000, 216], np.int32), device=cuda).lex_sort()
+    bpt = generate_output_coords_and_kernel_map(vox, ks)[2]
+    assert bool(((bpt.table >= 0).sum(1) == ks ** 3).any())
+    return vox.features.to(dtype).contiguous(), bpt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [8, 12, 96, 100, 384, 1024])
+@pytest.mark.parametrize("ks", [3, 7])
+def test_k8_tiles_match_plain_and_k6_bits_and_count_their_dw_adds(cuda, dtype, c, ks):
+    """K8 on rows with every offset valid: dx and dw against the plain
+    version, dx with the bits of K6 on (g, w flipped, table) (the previous
+    design's order: ascending offsets, fp32 fmaf), and the floats its
+    blocks add into dw equal to the host model's."""
+    x, bpt = _cube_map(cuda, ks, c, dtype)
+    k = ks ** 3
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    g = (torch.randn(x.shape, generator=gen, device=cuda) / x.shape[1] ** 0.5).to(dtype)
+    w = torch.randn((k, c), generator=gen, device=cuda) / k ** 0.5
+    depthwise_fma.reset_work_counts()
+    dx, dw = depthwise_fma.depthwise_fma_bwd_fused(x, g, w, bpt.table, bpt.offsets)
+    plan = depthwise_fma.depthwise_fma_bwd_fused.plan
+    count = depthwise_fma.work_counts(cuda)["fused_dw_floats"]
+    ref_dx, ref_dw = depthwise_fma.depthwise_fma_bwd_fused_plain(x, g, w, bpt.table, bpt.offsets)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype])
+    torch.testing.assert_close(dw, ref_dw, **DW_TOL)
+    k6 = depthwise_fma.depthwise_fma_fwd(g, w.flip(0).contiguous(), bpt.table)
+    assert torch.equal(_bits(dx), _bits(k6))
+    assert count == depthwise_fma.bwd_fused_dw_adds(bpt.table, c, plan["chunk_rows"]) > 0
+    if c == 96:  # the element-by-element path: the same dx bits
+        udx, udw = depthwise_fma.depthwise_fma_bwd_fused(_unaligned(x), _unaligned(g), w,
+                                                         bpt.table, bpt.offsets)
+        assert torch.equal(_bits(udx), _bits(dx))
+        torch.testing.assert_close(udw, ref_dw, **DW_TOL)
+
+
 def test_depthwise_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x, maps = _depth_maps(cuda, 8, torch.float32)
     sub, down = maps["3^3"], maps["2^3"]

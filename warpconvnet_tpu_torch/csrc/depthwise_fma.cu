@@ -3,7 +3,7 @@
 //      (dgrad is the same kernel on (g, w, rev): a per-channel weight is its
 //      own transpose)
 //   K7 wgrad     dw[k, c] = sum_{b, o} x[b, table[b, k, o], c] * g[b, o, c]
-//   K8 fused     dx and dw of a symmetric self-map in one pass:
+//   K8 fused     dx and dw of a symmetric self-map in one launch:
 //      dx[b, i, c] = sum_k g[b, table[b, k, i], c] * w[K-1-k, c], dw as K7
 // x and g [B, N, C] in fp32 or bf16, w [K, C] fp32, table int32 (-1 adds
 // zero), fp32 accumulation; out and dx in x's dtype, dw [K, C] fp32 summed
@@ -17,39 +17,55 @@
 // What bounds them on the card: bytes. Each valid pair costs one row gather
 // and C FMAs, so there is no arithmetic to speak of; a 7^3 map is a
 // [B, 343, N] table of which a few percent is valid, and streaming the table
-// sets the floor. The TPU kernels' union windows, one-hot MXU gathers, offset
-// grouping, 128-lane padding and overflow residual pass all exist because
-// Mosaic cannot gather rows by index; here a thread gathers a row segment by
-// its index, so none of them carries over, and the identity offset is an
-// ordinary table row.
+// sets the floor (360 MB of the 0.14 ms bound at the bench's 7^3 map). The
+// TPU kernels' union windows, one-hot MXU gathers, offset grouping, 128-lane
+// padding and overflow residual pass all exist because Mosaic cannot gather
+// rows by index; here a thread gathers a row segment by its index, so none
+// of them carries over, and the identity offset is an ordinary table row.
 //
-// Design. A thread owns (row, 8 channels) as one 16-byte (bf16) or two
-// 16-byte (fp32) vectors; a block of 256 threads holds `lanes` = ceil(C/8)
-// such threads per row and 256 / lanes rows. Sums are fp32 in registers.
-// - K6 and K8 work in rounds of up to 128 offsets: the block stages the
-//   table tile (offsets x its rows) in shared memory, loaded by all threads
-//   in coalesced segments, so each entry is read from memory once; one warp
-//   per row then compacts the row's valid entries in offset order (a ballot
-//   per 32 offsets), and the row's lanes walk only those, gathering four
-//   rows at a time so the loads overlap. (Letting every lane walk all K
-//   entries of its row, from global memory or from a staged tile, was
-//   several times slower at 7^3: C/8 lanes repeating K tests a row.)
-// - K6: the row's sum over all K stays in registers; one store per row.
-// - K7: a block owns one offset, one chunk of output rows and all channels;
-//   it loads 8 entries ahead, sums its chunk in registers, reduces over its
-//   rows in shared memory and adds C values into the zeroed dw with fp32
-//   atomics.
-// - K8: a block owns K6's rows and all channels. Each staged tile serves
-//   both parts: thread (row i, lane) walks its row's valid entries,
-//   dx[i] += g[j] * w[K-1-k] in registers across all K; then, with each
-//   offset's valid rows also compacted, thread (offset k, lane) walks them,
-//   sums dw[k] += x[j] * g[i] (g[i] staged in shared memory) in registers,
-//   and adds the sum into dw with float4 atomics: at most blocks x K x C / 4
-//   adds, only for offsets with a pair in the tile. Small shared memory and
-//   capped registers keep 4 blocks an SM in flight. (Versions that kept a
-//   [K, C] dw accumulator in shared memory, filled with shared-memory
-//   atomics or by offset owners, held 2 blocks an SM and read the table
-//   once per channel span; they were slower than K6-dgrad and K7 together.)
+// K6 (`depth_fwd`): persistent blocks over tiles of rows.
+// - A block owns a tile of 128 output rows (64 above 64 channels) and a
+//   chunk of up to 256 channels; `tpr` threads a row (1-8) each own up to
+//   4 groups of 8 channels, so the tile's rows do not shrink as C grows.
+//   The grid holds as many blocks as fit on the card; each walks the tiles
+//   blockIdx, blockIdx + gridDim, ... of all scenes.
+// - Rounds of 32 offsets: the table tile [32 offsets][rows] (a 256-512 B
+//   run an offset) moves into shared memory by cp.async through a ring of
+//   three stages, issued two rounds ahead across tiles, each completing on
+//   an mbarrier. One block barrier a round, for the ring: each warp lists
+//   its own rows' valid entries (lane k reads offset k, a ballot places
+//   them) into per-row lists of up to 64 entries and walks its rows only
+//   when a list could overflow and after the tile's last round, so a 7^3
+//   row's 15.6 pairs on average are gathered in one or two walks, as a
+//   pipeline 2-4 entries deep (8-16 row segments in flight a thread).
+// - Each row sums its entries in ascending offset order with fp32 fmaf,
+//   the parent design's order: the same bits. The weight rows come from L1.
+// K8 (`depth_bwd_fused`): one launch of two kinds of blocks.
+// - dx: one persistent block an SM runs K6's walk on g with the weight
+//   flipped (w[K-1-k] for offset k): the bits of K6 on (g, w flipped).
+// - dw: a block for each (offset k, chunk of 8 x threads rows of a
+//   scene) lists the chunk's valid pairs (o, j) in shared memory, sums
+//   x[j] * g[o] over them in registers (lanes over pairs and channel
+//   groups, 2-4 pairs gathered ahead), meets the lanes' sums in shared
+//   memory and adds C floats into dw[k] once, with float4 atomics: 3.7M
+//   floats at 7^3 C 96 on the bench pair, where the parent design added
+//   200M (one add per 21-row tile and offset). Chunks of 4096 and 8192
+//   rows (fewer blocks, fewer adds) were slower. The block counts the
+//   floats it adds (`count`), the kernel's own record of its dw traffic.
+// - Timed against it (tools/time_k6_k8.py): designs where one
+//   gather of g[j] served both halves (dw through the map's mirror pairs,
+//   x[i] * g[j] into dw[K-1-k]) with the dw sums in a [K, chunk] partial
+//   in shared memory: by shared-memory float atomics (compare-and-swap
+//   loops), by per-round column passes, by queues drained by the warp
+//   that owns the partial row. All were slower than the parent's 1.55 ms
+//   at 7^3 C 96 (2.1-4.3 ms): the 137 KB partial took L1's room from the
+//   gathered rows and the weight, and the atomics serialised. Weight
+//   slices staged in shared memory and TMA bulk copies of the table were
+//   slower for K6 too (all on an H100 SXM at 700 W).
+// K7 (`depth_wgrad`): a block owns one offset, one chunk of output rows and
+// all channels; it loads 8 entries ahead, sums its chunk in registers,
+// reduces over its rows in shared memory and adds C values into the zeroed
+// dw with fp32 atomics.
 #include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -59,10 +75,17 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;        // lanes x rows a block
+constexpr int THREADS = 256;        // K7's block
 constexpr int KB = 8;               // K7: table entries loaded ahead
-constexpr int MAX_CHANNELS = 1024;  // lanes <= 128, >= 2 rows a block
-constexpr int SMS = 132;            // H100 SXM
+constexpr int MAX_CHANNELS = 1024;
+constexpr int SMS = 132;            // H100 SXM (K7's grid sizing)
+constexpr int MAX_THREADS = 512;    // K6 / K8 block
+constexpr int GMAX = 4;             // 8-channel groups a thread owns in its row
+constexpr int CHUNK = 256;          // channels of a K6 / K8 block at most
+constexpr int KC = 32;              // offsets of a round (one lane each)
+constexpr int NS = 3;               // stages of the table ring
+constexpr int LCAP = 64;            // entries a row's list holds before it is walked
+constexpr int SMEM_MAX = 232448;    // dynamic shared memory of a block (227 KB)
 
 // 8 consecutive channels into fp32 registers. VEC: the caller checked that
 // C % 8 == 0 and the base pointers are 16-byte aligned, so n_ok == 8 and the
@@ -125,145 +148,6 @@ __device__ __forceinline__ void store8(bf16* p, int n_ok, const float (&v)[8]) {
   }
 }
 
-// The valid entries of a staged table tile, row by row in offset order and,
-// for K8, offset by offset in row order. Shared-memory layout (kc offsets x
-// rows of a round): tile [kc][ts] int32 (ts = rows | 1, odd, so column
-// reads hit distinct banks); row lists j [rows][kc] int32 and kk [rows][kc]
-// int16 with cnt [rows]; column lists r [kc][rows] int16 with ccnt [kc].
-struct Lists {
-  int32_t* tile;
-  int32_t* j;
-  int* cnt;
-  int* ccnt;
-  int16_t* kk;
-  int16_t* r;
-  __device__ Lists(void* base, int kc, int rows)
-      : tile(static_cast<int32_t*>(base)),
-        j(tile + kc * (rows | 1)),
-        cnt(j + kc * rows),
-        ccnt(cnt + rows),
-        kk(reinterpret_cast<int16_t*>(ccnt + kc)),
-        r(kk + kc * rows) {}
-};
-
-size_t lists_bytes(int kc, int rows) {
-  return size_t(kc) * ((rows | 1) * 4 + rows * 8 + 4) + rows * 4;
-}
-
-// Offsets staged a round: as many as a `budget`-byte Lists holds, a
-// multiple of 8 up to 128, no more than K needs.
-int round_offsets(int k_vol, int rows, int budget) {
-  const int fit = budget / (12 * rows + 4) / 8 * 8;
-  return std::max(8, std::min({128, fit, (k_vol + 7) / 8 * 8}));
-}
-
-// Stage table rows [k0, k0 + kc) x columns [r0, r0 + rows) of one scene
-// (tb = table + b * k_vol * n), -1 past either end, then compact each row's
-// valid entries in offset order (one warp a row, a ballot per 32 offsets)
-// and, with COLS, each offset's valid rows in row order. Consecutive threads
-// load consecutive columns, so each warp load is one coalesced segment and
-// every entry is loaded once. Every thread of the block (a multiple of 32)
-// calls it; returns false, with the lists untouched, when the whole tile is
-// -1.
-template <bool COLS>
-__device__ __forceinline__ bool stage_lists(const int32_t* __restrict__ tb, int n, int k_vol,
-                                            int k0, int kc, int r0, int rows, Lists L) {
-  const int ts = rows | 1;
-  int any = 0;
-  for (int idx = threadIdx.x; idx < kc * rows; idx += blockDim.x) {
-    const int kk = idx / rows, r = idx - kk * rows;
-    const int k = k0 + kk, o = r0 + r;
-    const int32_t v = (k < k_vol && o < n) ? __ldg(tb + int64_t(k) * n + o) : -1;
-    L.tile[kk * ts + r] = v;
-    any |= v >= 0;
-  }
-  if (!__syncthreads_or(any)) return false;
-  const int warp = threadIdx.x / 32, wl = threadIdx.x % 32;
-  for (int r = warp; r < rows; r += blockDim.x / 32) {
-    int base = 0;
-    for (int kk0 = 0; kk0 < kc; kk0 += 32) {
-      const int kk = kk0 + wl;
-      const int32_t v = kk < kc ? L.tile[kk * ts + r] : -1;
-      const unsigned mask = __ballot_sync(0xffffffffu, v >= 0);
-      if (v >= 0) {
-        const int pos = base + __popc(mask & ((1u << wl) - 1u));
-        L.j[r * kc + pos] = v;
-        L.kk[r * kc + pos] = int16_t(kk);
-      }
-      base += __popc(mask);
-    }
-    if (wl == 0) L.cnt[r] = base;
-  }
-  if (COLS) {
-    for (int kk = warp; kk < kc; kk += blockDim.x / 32) {
-      int base = 0;
-      for (int q0 = 0; q0 < rows; q0 += 32) {
-        const int q = q0 + wl;
-        const bool hit = q < rows && L.tile[kk * ts + q] >= 0;
-        const unsigned mask = __ballot_sync(0xffffffffu, hit);
-        if (hit) L.r[kk * rows + base + __popc(mask & ((1u << wl) - 1u))] = int16_t(q);
-        base += __popc(mask);
-      }
-      if (wl == 0) L.ccnt[kk] = base;
-    }
-  }
-  __syncthreads();
-  return true;
-}
-
-// Gather 8 channels of four rows src[j_u] (u < 4; -1 reads row 0, then is
-// dropped): the four loads are issued together so their latencies overlap.
-template <bool VEC, typename T>
-__device__ __forceinline__ void gather4(const T* src, int64_t ld, const int32_t (&j)[4], int n_ok,
-                                        float (&v)[4][8]) {
-#pragma unroll
-  for (int u = 0; u < 4; ++u) load8<VEC>(src + int64_t(max(j[u], 0)) * ld, n_ok, v[u]);
-}
-
-// ---- K6: forward (and dgrad through rev) -------------------------------------
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-depth_fwd(const T* __restrict__ x, const float* __restrict__ w,
-          const int32_t* __restrict__ table, T* __restrict__ out,
-          int n_in, int n_out, int k_vol, int c, int lanes, int kc) {
-  extern __shared__ __align__(16) int32_t smem_i[];
-  const int rows = THREADS / lanes;  // threads past lanes * rows only stage
-  const Lists L(smem_i, kc, rows);
-  const int lane = threadIdx.x % lanes, ry = threadIdx.x / lanes;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * rows, o = r0 + ry;
-  const bool active = ry < rows && o < n_out;
-  const int ch = lane * 8;
-  const int n_ok = min(8, c - ch);
-  const T* xb = x + int64_t(b) * n_in * c + ch;
-  const int32_t* tb = table + int64_t(b) * k_vol * n_out;
-  float acc[8] = {};
-  for (int k0 = 0; k0 < k_vol; k0 += kc) {
-    if (stage_lists<false>(tb, n_out, k_vol, k0, kc, r0, rows, L) && active) {
-      const int m = L.cnt[ry];
-      const int32_t* pj = L.j + ry * kc;
-      const int16_t* pk = L.kk + ry * kc;
-      for (int e0 = 0; e0 < m; e0 += 4) {
-        int32_t j[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) j[u] = e0 + u < m ? pj[e0 + u] : -1;
-        float xv[4][8];
-        gather4<VEC>(xb, c, j, n_ok, xv);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          if (j[u] < 0) continue;
-          float wv[8];
-          load8<VEC>(w + int64_t(k0 + pk[e0 + u]) * c + ch, n_ok, wv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) acc[e] = fmaf(xv[u][e], wv[e], acc[e]);
-        }
-      }
-    }
-    __syncthreads();  // the lists are restaged next round
-  }
-  if (active) store8<VEC>(out + (int64_t(b) * n_out + o) * c + ch, n_ok, acc);
-}
 
 // ---- K7: weight gradient ------------------------------------------------------
 
@@ -314,100 +198,460 @@ depth_wgrad(const T* __restrict__ x, const T* __restrict__ g,
   }
 }
 
-// ---- K8: fused self-map backward ---------------------------------------------
+// ---- K6 and K8: tiles of rows, rounds of offsets ------------------------------
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier in shared memory (its address): init with the arrivals a
+// phase takes; an arrival; wait until the phase of the given parity has
+// completed.
+__device__ __forceinline__ void mbar_init(uint32_t bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nWAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n"
+      :: "r"(bar), "r"(parity) : "memory");
+}
+
+// 16 bytes global -> shared without passing through registers.
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(smem_addr(dst)), "l"(src));
+}
+
+// One arrival on the mbarrier once this thread's earlier cp.async copies
+// have landed.
+__device__ __forceinline__ void cp_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// 8 channels of a gathered row as loaded (packed until used): 16 bytes of
+// bf16 or 32 of fp32 on the vector path, else element by element (zero at
+// and past n_ok).
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS, 4)
-depth_bwd_fused(const T* __restrict__ x, const T* __restrict__ g,
-                const float* __restrict__ w, const int32_t* __restrict__ table,
-                T* __restrict__ dx, float* __restrict__ dw,
-                int n, int k_vol, int c, int lanes, int kc) {
-  extern __shared__ __align__(16) float smem[];
-  const int rows = THREADS / lanes;  // threads past lanes * rows only stage
-  const int width = lanes * 8;
-  float* g_s = smem;                 // [rows][width]: g of the block's rows
-  const Lists L(g_s + rows * width, kc, rows);
-  const int lane = threadIdx.x % lanes, ry = threadIdx.x / lanes;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * rows, i = r0 + ry;
-  const bool active = ry < rows && i < n;
-  const int ch = lane * 8;
-  const int n_ok = min(8, c - ch);
-  const T* xb = x + int64_t(b) * n * c;
-  const T* gb = g + int64_t(b) * n * c;
-  const int32_t* tb = table + int64_t(b) * k_vol * n;
-  if (ry < rows) {
-    float gi[8] = {};
-    if (active) load8<VEC>(gb + int64_t(i) * c + ch, n_ok, gi);
+struct Row8 {
+  float v[8];
+  __device__ __forceinline__ void load(const T* p, int n_ok) { load8<false>(p, n_ok, v); }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) g_s[ry * width + ch + e] = gi[e];
+    for (int e = 0; e < 8; ++e) o[e] = v[e];
   }
-  float acc[8] = {};
-  for (int k0 = 0; k0 < k_vol; k0 += kc) {
-    if (stage_lists<true>(tb, n, k_vol, k0, kc, r0, rows, L)) {
-      // dx part: thread (row i, lane) walks its row's valid entries,
-      // dx[i] += g[j] * w[K-1-k] (the reverse of a symmetric self-map is
-      // its table with K flipped), in registers across all K.
-      if (active) {
-        const int m = L.cnt[ry];
-        const int32_t* pj = L.j + ry * kc;
-        const int16_t* pk = L.kk + ry * kc;
-        for (int e0 = 0; e0 < m; e0 += 4) {
-          int32_t j[4];
+};
+
+template <>
+struct Row8<bf16, true> {
+  uint4 u;
+  __device__ __forceinline__ void load(const bf16* p, int) {
+    u = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-          for (int u = 0; u < 4; ++u) j[u] = e0 + u < m ? pj[e0 + u] : -1;
-          float gv[4][8];
-          gather4<VEC>(gb + ch, c, j, n_ok, gv);
+    for (int q = 0; q < 4; ++q) {
+      const float2 f = __bfloat1622float2(h[q]);
+      o[2 * q] = f.x;
+      o[2 * q + 1] = f.y;
+    }
+  }
+};
+
+template <>
+struct Row8<float, true> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p, int) {
+    a = __ldg(reinterpret_cast<const float4*>(p));
+    b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void get(float (&o)[8]) const {
+    o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+    o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
+  }
+};
+
+// A tile block's shape and its shared memory (byte offsets): the ring's
+// mbarriers, the table ring [NS][kc][ts] int32 (ts = rows + 4: 16-byte rows
+// whose columns fall in 8 banks), the row lists' entries lj [rows][LCAP +
+// 1] int32, their offsets lk [rows][LCAP + 2] uint16 and counts cnt [rows].
+struct Plan {
+  int tpr;      // threads a row: 1, 2, 4 or 8
+  int groups;   // 8-channel groups a thread owns (<= GMAX)
+  int rows;     // rows of a tile
+  int threads;  // rows x tpr
+  int kc;       // offsets a round (<= 32)
+  int ts;       // ints a staged table row (rows + 4)
+  int cw;       // channels a chunk (a multiple of 8)
+  int chunks;   // channel chunks (grid.y)
+  int lgp;      // K8's dw blocks: lanes a pair (the chunk's groups, to a power of 2)
+  int dw_rows;  // K8: rows of a dw block's chunk (DW_E a thread)
+  int o_ring, o_lj, o_lk, o_cnt, smem;
+};
+
+constexpr int BARS = 128;  // bytes before the ring: NS mbarriers
+constexpr int DW_E = 8;    // K8: table entries a thread of a dw block lists
+
+// Tiles of 128 rows up to 64 channels a chunk, 64 above; tpr threads a row
+// (128-512 threads). For K8 the shared memory also holds a dw block's pair
+// list and partial sums.
+Plan make_plan(int k_vol, int c, bool fused) {
+  Plan p{};
+  p.kc = std::max(8, std::min(KC, (k_vol + 7) / 8 * 8));
+  const int nc = (c + CHUNK - 1) / CHUNK;
+  p.cw = ((c + nc - 1) / nc + 7) / 8 * 8;
+  p.chunks = (c + p.cw - 1) / p.cw;
+  const int lc = p.cw / 8;
+  p.tpr = lc <= 4 ? 1 : lc <= 8 ? 2 : lc <= 16 ? 4 : 8;
+  p.groups = (lc + p.tpr - 1) / p.tpr;
+  for (p.lgp = 1; p.lgp < lc; p.lgp *= 2) {}
+  p.rows = p.tpr <= 2 ? 128 : 64;
+  p.threads = p.rows * p.tpr;
+  p.ts = p.rows + 4;
+  int off = BARS;
+  p.o_ring = off;
+  off += NS * p.kc * p.ts * 4;
+  p.o_lj = off;
+  off += p.rows * (LCAP + 1) * 4;
+  p.o_lk = off;
+  off += p.rows * (LCAP + 2) * 2;
+  p.o_cnt = off;
+  off += p.rows * 4;
+  p.dw_rows = DW_E * p.threads;
+  const int dw_bytes = fused ? p.dw_rows * 8 + (p.threads / 32) * p.cw * 4 + 128 : 0;
+  p.smem = (std::max(off, dw_bytes) + 15) / 16 * 16;
+  return p;
+}
+
+template <typename T>
+struct Args {
+  const T* src;        // the gathered rows: K6 x (dgrad: g), K8 g
+  const T* own;        // K8's dw blocks: x
+  const float* w;      // [K, C]
+  const int32_t* table;
+  T* out;              // K6 out, K8 dx
+  float* dw;           // K8, zeroed
+  unsigned long long* count;  // K8: floats added into dw (may be null)
+  int scenes, n_in, n_out, k_vol, c;
+  int tiles_per_scene, tiles;
+  bool table16;        // table rows move as 16-byte copies (n_out % 4 == 0, aligned)
+};
+
+// Stage round q of tile t into ring stage buf, -1 past either end: each
+// thread's cp.async copies, then its arrival on the stage's mbarrier once
+// they land (or, where the table's rows are not 16-byte multiples, its
+// loads and a plain arrival).
+template <typename T>
+__device__ __forceinline__ void stage(const Args<T>& a, const Plan& p, int32_t* ring,
+                                      uint32_t bar, int buf, int t, int q) {
+  const int R = p.rows, kc = p.kc, K = a.k_vol;
+  const int b = t / a.tiles_per_scene, r0 = (t - b * a.tiles_per_scene) * R;
+  const int k0 = q * kc;
+  int32_t* ts = ring + buf * kc * p.ts;
+  const int32_t* tb = a.table + int64_t(b) * K * a.n_out + r0;
+  if (a.table16) {
+    const int per = R / 4;
+    for (int i = threadIdx.x; i < kc * per; i += blockDim.x) {
+      const int kk = i / per, o4 = (i - kk * per) * 4;
+      int32_t* d = ts + kk * p.ts + o4;
+      if (k0 + kk < K && r0 + o4 < a.n_out) cp16(d, tb + int64_t(k0 + kk) * a.n_out + o4);
+      else *reinterpret_cast<int4*>(d) = make_int4(-1, -1, -1, -1);
+    }
+    cp_arrive(bar);
+  } else {
+    for (int i = threadIdx.x; i < kc * R; i += blockDim.x) {
+      const int kk = i / R, o = i - kk * R;
+      ts[kk * p.ts + o] = k0 + kk < K && r0 + o < a.n_out
+                              ? __ldg(tb + int64_t(k0 + kk) * a.n_out + o) : -1;
+    }
+    mbar_arrive(bar);
+  }
+}
+
+// The row's threads walk its list (m entries, ascending offsets) as a
+// pipeline U entries deep: entry e + U is gathered as entry e is summed.
+// FLIP (K8's dx) takes weight row K-1-k for offset k; the weight rows come
+// from L1.
+template <typename T, bool VEC, int G, bool FLIP>
+__device__ __forceinline__ void walk_row(const Args<T>& a, const int32_t* lj, const uint16_t* lk,
+                                         int m, const T* sb, const float* wb, const int (&chl)[G],
+                                         const int (&nok)[G], float (&acc)[G][8]) {
+  constexpr int U = VEC && sizeof(T) == 2 ? 4 : 2;
+  Row8<T, VEC> v[U][G];
+  int k[U];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (j[u] < 0) continue;
-            float wv[8];
-            load8<VEC>(w + int64_t(k_vol - 1 - k0 - pk[e0 + u]) * c + ch, n_ok, wv);
+  for (int u = 0; u < U; ++u) {
+    if (u >= m) break;
+    const int32_t j = lj[u];
+    k[u] = FLIP ? a.k_vol - 1 - lk[u] : lk[u];
 #pragma unroll
-            for (int e = 0; e < 8; ++e) acc[e] = fmaf(gv[u][e], wv[e], acc[e]);
-          }
-        }
+    for (int g = 0; g < G; ++g)
+      if (nok[g] > 0) v[u][g].load(sb + int64_t(j) * a.c + chl[g], nok[g]);
+  }
+  for (int e0 = 0; e0 < m; e0 += U) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (e0 + u >= m) break;
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (nok[g] <= 0) continue;
+        float gv[8], wv[8];
+        v[u][g].get(gv);
+        load8<VEC>(wb + int64_t(k[u]) * a.c + chl[g], nok[g], wv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = fmaf(gv[e], wv[e], acc[g][e]);
       }
-      // dw part: thread (offset k, lane) walks the offset's valid rows,
-      // sums x[j] * g[i] in registers and adds the sum into dw.
-      for (int p = threadIdx.x; p < lanes * kc; p += blockDim.x) {
-        const int ln = p / kc, kk = p % kc;
-        const int cnt = L.ccnt[kk];
-        if (cnt == 0) continue;
-        const int m = min(8, c - ln * 8);
-        const int16_t* pr = L.r + kk * rows;
-        float sum[8] = {};
-        for (int e0 = 0; e0 < cnt; e0 += 4) {
-          int32_t j[4], q[4];
+      const int en = e0 + u + U;
+      if (en < m) {
+        const int32_t j = lj[en];
+        k[u] = FLIP ? a.k_vol - 1 - lk[en] : lk[en];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            q[u] = e0 + u < cnt ? pr[e0 + u] : 0;
-            j[u] = e0 + u < cnt ? L.tile[kk * (rows | 1) + q[u]] : -1;
-          }
-          float xv[4][8];
-          gather4<VEC>(xb + ln * 8, c, j, m, xv);
+        for (int g = 0; g < G; ++g)
+          if (nok[g] > 0) v[u][g].load(sb + int64_t(j) * a.c + chl[g], nok[g]);
+      }
+    }
+  }
+}
+
+// K6 (and K8's dx, FLIP) over the tiles first, first + stride, ... of all
+// scenes. The table ring (NS stages, issued NS-1 rounds ahead, each
+// completing on its mbarrier) needs one block barrier a round; each warp
+// lists its own rows' valid entries (lane k reads offset k, a ballot places
+// them) and walks its rows when a list could overflow and after the tile's
+// last round.
+template <typename T, bool VEC, int G, bool FLIP>
+__device__ __forceinline__ void tile_walk(const Args<T>& a, const Plan& p, unsigned char* smem,
+                                          int first, int stride) {
+  const uint32_t bar0 = smem_addr(smem);
+  int32_t* ring = reinterpret_cast<int32_t*>(smem + p.o_ring);
+  int32_t* lj = reinterpret_cast<int32_t*>(smem + p.o_lj);
+  uint16_t* lk = reinterpret_cast<uint16_t*>(smem + p.o_lk);
+  int* cnt = reinterpret_cast<int*>(smem + p.o_cnt);
+  constexpr int LJ = LCAP + 1, LK = LCAP + 2;
+  const int R = p.rows, kc = p.kc, K = a.k_vol, nr = (K + kc - 1) / kc;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int rpw = 32 / p.tpr, wr0 = (tid >> 5) * rpw;  // the warp's rows
+  const int c0 = blockIdx.y * p.cw, width = min(p.cw, a.c - c0);
+  // Thread (row r, sub) owns groups sub, sub + tpr, ... of row r.
+  const int r = tid / p.tpr, sub = tid - r * p.tpr;
+  int chl[G], nok[G];
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            if (j[u] < 0) continue;
-            const float* gr = g_s + q[u] * width + ln * 8;
+  for (int g = 0; g < G; ++g) {
+    chl[g] = (g * p.tpr + sub) * 8;
+    nok[g] = max(0, min(8, width - chl[g]));
+  }
+  for (int i = tid; i < R; i += blockDim.x) cnt[i] = 0;
+  if (tid == 0)
+    for (int i = 0; i < NS; ++i) mbar_init(bar0 + 8 * i, blockDim.x);
+  __syncthreads();
+  int it = first, iq = 0, ibuf = 0;  // the next round to stage
+  auto advance = [&](int& t, int& q) {
+    if (++q == nr) {
+      q = 0;
+      t += stride;
+    }
+  };
+  for (int i = 0; i < NS - 1; ++i) {
+    if (it < a.tiles) stage(a, p, ring, bar0 + 8 * ibuf, ibuf, it, iq);
+    advance(it, iq);
+    ibuf = (ibuf + 1) % NS;
+  }
+  float acc[G][8];
+  int t = first, q = 0;
+  for (int rnd = 0; t < a.tiles; ++rnd) {
+    const int buf = rnd % NS;
+    const int b = t / a.tiles_per_scene, r0 = (t - b * a.tiles_per_scene) * R;
+    if (q == 0) {
 #pragma unroll
-            for (int e = 0; e < 8; ++e) sum[e] = fmaf(xv[u][e], gr[e], sum[e]);
-          }
+      for (int g = 0; g < G; ++g)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[g][e] = 0.f;
+    }
+    mbar_wait(bar0 + 8 * buf, (rnd / NS) & 1);
+    __syncthreads();  // this round's stage has landed; the previous round's stage is free
+    if (it < a.tiles) stage(a, p, ring, bar0 + 8 * ibuf, ibuf, it, iq);
+    advance(it, iq);
+    ibuf = (ibuf + 1) % NS;
+
+    const T* sb = a.src + int64_t(b) * a.n_in * a.c + c0;
+    auto walk = [&]() {
+      walk_row<T, VEC, G, FLIP>(a, lj + r * LJ, lk + r * LK, cnt[r], sb, a.w + c0, chl, nok, acc);
+      __syncwarp();
+      if (lane < rpw) cnt[wr0 + lane] = 0;
+      __syncwarp();
+    };
+    if (__any_sync(0xffffffffu, lane < rpw && cnt[wr0 + lane] + kc > LCAP)) walk();
+    // The warp lists its rows' valid entries of this round in offset order:
+    // lane kk reads offset kk of 8 rows at once, a ballot a row places the
+    // valid ones after the row's earlier entries (lane i keeps row i's count).
+    const int32_t* tsb = ring + buf * kc * p.ts;
+    int mine = lane < rpw ? cnt[wr0 + lane] : 0;
+    for (int i0 = 0; i0 < rpw; i0 += 8) {
+      int32_t v[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        v[i] = lane < kc && i0 + i < rpw ? tsb[lane * p.ts + wr0 + i0 + i] : -1;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int rr = wr0 + i0 + i;
+        const unsigned mask = __ballot_sync(0xffffffffu, v[i] >= 0);
+        const int base = __shfl_sync(0xffffffffu, mine, i0 + i);
+        if (v[i] >= 0) {
+          const int pos = base + __popc(mask & ((1u << lane) - 1u));
+          lj[rr * LJ + pos] = v[i];
+          lk[rr * LK + pos] = uint16_t(q * kc + lane);
         }
-        float* d = dw + int64_t(k0 + kk) * c + ln * 8;
-        if (VEC) {
-          atomicAdd(reinterpret_cast<float4*>(d), make_float4(sum[0], sum[1], sum[2], sum[3]));
-          atomicAdd(reinterpret_cast<float4*>(d) + 1, make_float4(sum[4], sum[5], sum[6], sum[7]));
-        } else {
+        if (lane == i0 + i) mine = base + __popc(mask);
+      }
+    }
+    if (lane < rpw) cnt[wr0 + lane] = mine;
+    __syncwarp();
+    if (q + 1 == nr) {  // the tile's last round
+      walk();
+      if (r0 + r < a.n_out) {
+        T* orow = a.out + (int64_t(b) * a.n_out + r0 + r) * a.c + c0;
 #pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (e < m) atomicAdd(d + e, sum[e]);
+        for (int g = 0; g < G; ++g)
+          if (nok[g] > 0) store8<VEC>(orow + chl[g], nok[g], acc[g]);
+      }
+    }
+    advance(t, q);
+  }
+}
+
+template <typename T, bool VEC, int G>
+__global__ void __launch_bounds__(MAX_THREADS)
+depth_fwd(const Args<T> a, const Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  tile_walk<T, VEC, G, false>(a, p, smem, blockIdx.x, gridDim.x);
+}
+
+// K8's dw block d: offset k = d % K of rows [o0, o0 + dw_rows) of one
+// scene. The block lists the chunk's valid pairs (o, j = table[k, o]) in
+// shared memory, then its lanes, (slot, group) with slots spread over the
+// warps, sum x[j] * g[o] over the pairs in registers, gathering U pairs
+// ahead; the sums meet over the slots in shared memory and the block adds
+// them into dw[k] once, with float4 atomics, and counts the floats added.
+template <typename T, bool VEC>
+__device__ __forceinline__ void dw_chunk(const Args<T>& a, const Plan& p, unsigned char* smem,
+                                         int d) {
+  constexpr int U = VEC && sizeof(T) == 2 ? 4 : 2;
+  int2* items = reinterpret_cast<int2*>(smem);
+  float* red = reinterpret_cast<float*>(smem + p.dw_rows * 8);
+  int* part = reinterpret_cast<int*>(red + (blockDim.x >> 5) * p.cw);
+  const int K = a.k_vol, n = a.n_out, nrc = (n + p.dw_rows - 1) / p.dw_rows;
+  const int k = d % K, b = d / K / nrc, o0 = (d / K - b * nrc) * p.dw_rows;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, warps = blockDim.x >> 5;
+  const int c0 = blockIdx.y * p.cw, width = min(p.cw, a.c - c0);
+  const int32_t* trow = a.table + (int64_t(b) * K + k) * n + o0;
+  const int lim = min(p.dw_rows, n - o0);
+  // List the valid pairs: each thread takes DW_E consecutive entries.
+  int32_t v[DW_E];
+#pragma unroll
+  for (int e = 0; e < DW_E; ++e) {
+    const int o = tid * DW_E + e;
+    v[e] = o < lim ? __ldg(trow + o) : -1;
+  }
+  int mine = 0;
+#pragma unroll
+  for (int e = 0; e < DW_E; ++e) mine += v[e] >= 0;
+  int incl = mine;  // inclusive scan over the warp, then over the warps
+#pragma unroll
+  for (int off = 1; off < 32; off *= 2) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, off);
+    if (lane >= off) incl += y;
+  }
+  if (lane == 31) part[warp] = incl;
+  __syncthreads();
+  int before = 0, total = 0;
+  for (int w = 0; w < warps; ++w) {
+    const int x = part[w];
+    before += w < warp ? x : 0;
+    total += x;
+  }
+  int pos = before + incl - mine;
+#pragma unroll
+  for (int e = 0; e < DW_E; ++e)
+    if (v[e] >= 0) items[pos++] = make_int2(o0 + tid * DW_E + e, v[e]);
+  __syncthreads();
+  if (total == 0) return;
+  // Lane (slot s of the warp, group gl): slot id = warp * slots + s.
+  const int slots = 32 / p.lgp, s = lane / p.lgp, gl = lane - s * p.lgp;
+  const int nsl = warps * slots, sid = warp * slots + s;
+  const int ch = gl * 8, nk = max(0, min(8, width - ch));
+  const T* xb = a.own + int64_t(b) * a.n_in * a.c + c0 + ch;
+  const T* gb = a.src + int64_t(b) * n * a.c + c0 + ch;
+  float sum[8] = {};
+  if (nk > 0) {
+    Row8<T, VEC> xv[U], gv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = sid + u * nsl;
+      if (i >= total) break;
+      const int2 pr = items[i];
+      xv[u].load(xb + int64_t(pr.y) * a.c, nk);
+      gv[u].load(gb + int64_t(pr.x) * a.c, nk);
+    }
+    for (int i0 = sid; i0 < total; i0 += U * nsl) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (i0 + u * nsl >= total) break;
+        float xf[8], gf[8];
+        xv[u].get(xf);
+        gv[u].get(gf);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum[e] = fmaf(xf[e], gf[e], sum[e]);
+        const int in = i0 + (u + U) * nsl;
+        if (in < total) {
+          const int2 pr = items[in];
+          xv[u].load(xb + int64_t(pr.y) * a.c, nk);
+          gv[u].load(gb + int64_t(pr.x) * a.c, nk);
         }
       }
     }
-    __syncthreads();  // the lists are restaged next round
   }
-  if (active) store8<VEC>(dx + (int64_t(b) * n + i) * c + ch, n_ok, acc);
+  for (int off = p.lgp; off < 32; off *= 2)
+#pragma unroll
+    for (int e = 0; e < 8; ++e) sum[e] += __shfl_xor_sync(0xffffffffu, sum[e], off);
+  if (s == 0 && nk > 0)
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < nk) red[warp * p.cw + ch + e] = sum[e];
+  __syncthreads();
+  float* dk = a.dw + int64_t(k) * a.c + c0;
+  if (VEC) {
+    for (int i = tid; i < width / 4; i += blockDim.x) {
+      float4 t4 = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < warps; ++w) {
+        const float4 r4 = *reinterpret_cast<const float4*>(red + w * p.cw + 4 * i);
+        t4.x += r4.x; t4.y += r4.y; t4.z += r4.z; t4.w += r4.w;
+      }
+      atomicAdd(reinterpret_cast<float4*>(dk) + i, t4);
+    }
+  } else {
+    for (int i = tid; i < width; i += blockDim.x) {
+      float t1 = 0.f;
+      for (int w = 0; w < warps; ++w) t1 += red[w * p.cw + i];
+      atomicAdd(dk + i, t1);
+    }
+  }
+  if (tid == 0 && a.count != nullptr) atomicAdd(a.count, static_cast<unsigned long long>(width));
+}
+
+// K8: blocks [0, n_dx) walk the tiles for dx (K6 on g with the weight
+// flipped), the rest are dw blocks.
+template <typename T, bool VEC, int G>
+__global__ void __launch_bounds__(MAX_THREADS)
+depth_bwd_fused(const Args<T> a, const Plan p, int n_dx) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (int(blockIdx.x) < n_dx) tile_walk<T, VEC, G, true>(a, p, smem, blockIdx.x, n_dx);
+  else dw_chunk<T, VEC>(a, p, smem, blockIdx.x - n_dx);
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -418,16 +662,87 @@ bool vec_ok(int c, const void* a, const void* b, const void* d, const void* e = 
          (e == nullptr || aligned16(e));
 }
 
-template <typename T, bool VEC>
-int launch_fwd(const void* x, const float* w, const int32_t* table, void* out, int b, int n_in,
-               int n_out, int k_vol, int c, cudaStream_t stream) {
-  const int lanes = (c + 7) / 8, rows = THREADS / lanes;
-  const int kc = round_offsets(k_vol, rows, 32 * 1024);
-  const dim3 grid((n_out + rows - 1) / rows, b);
-  depth_fwd<T, VEC><<<grid, THREADS, lists_bytes(kc, rows), stream>>>(
-      static_cast<const T*>(x), w, table, static_cast<T*>(out), n_in, n_out, k_vol, c, lanes,
-      kc);
+int num_sms() {
+  static const int sms = [] {
+    int device = 0, n = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, device);
+    return n;
+  }();
+  return sms;
+}
+
+// cudaFuncSetAttribute(KERNEL, max dynamic shared memory), once a kernel
+// (a template instance each) and device.
+template <auto KERNEL>
+cudaError_t allow_smem() {
+  static unsigned done = 0;  // a bit per device
+  int device = 0;
+  cudaGetDevice(&device);
+  if (device < 32 && (done >> device) & 1u) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(KERNEL, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+  if (err == cudaSuccess && device < 32) done |= 1u << device;
+  return err;
+}
+
+// K6: as many persistent blocks as fit on the card at once, at most one a
+// tile. K8: one persistent dx block an SM (at most one a tile), then the
+// dw blocks, K for each chunk of dw_rows rows of each scene.
+template <typename T, bool VEC, int G>
+int launch(const Args<T>& a, const Plan& p, bool fused, cudaStream_t stream, int* plan_out) {
+  if (!fused) {
+    auto kernel = depth_fwd<T, VEC, G>;
+    cudaError_t err = allow_smem<depth_fwd<T, VEC, G>>();
+    if (err != cudaSuccess) return int(err);
+    int per_sm = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, p.threads, p.smem);
+    const int blocks = int(std::min<int64_t>(a.tiles, int64_t(num_sms()) * std::max(per_sm, 1)));
+    kernel<<<dim3(blocks, p.chunks), p.threads, p.smem, stream>>>(a, p);
+    return int(cudaGetLastError());
+  }
+  auto kernel = depth_bwd_fused<T, VEC, G>;
+  cudaError_t err = allow_smem<depth_bwd_fused<T, VEC, G>>();
+  if (err != cudaSuccess) return int(err);
+  const int n_dx = std::min(a.tiles, num_sms());
+  const int64_t n_dw = int64_t(a.scenes) * ((a.n_out + p.dw_rows - 1) / p.dw_rows) * a.k_vol;
+  if (n_dx + n_dw > 0x7fffffff) return int(cudaErrorInvalidValue);
+  if (plan_out != nullptr) {
+    plan_out[0] = int(n_dw);
+    plan_out[1] = p.dw_rows;
+  }
+  kernel<<<dim3(unsigned(n_dx + n_dw), p.chunks), p.threads, p.smem, stream>>>(a, p, n_dx);
   return int(cudaGetLastError());
+}
+
+template <typename T>
+int run(const void* src, const void* own, const float* w, const int32_t* table, void* out,
+        float* dw, unsigned long long* count, int b, int n_in, int n_out, int k_vol, int c,
+        bool vec, bool fused, cudaStream_t stream, int* plan_out) {
+  const Plan p = make_plan(k_vol, c, fused);
+  Args<T> a{};
+  a.src = static_cast<const T*>(src);
+  a.own = static_cast<const T*>(own);
+  a.w = w;
+  a.table = table;
+  a.out = static_cast<T*>(out);
+  a.dw = dw;
+  a.count = count;
+  a.n_in = n_in;
+  a.n_out = n_out;
+  a.k_vol = k_vol;
+  a.c = c;
+  a.scenes = b;
+  a.tiles_per_scene = (n_out + p.rows - 1) / p.rows;
+  a.tiles = b * a.tiles_per_scene;
+  a.table16 = n_out % 4 == 0 && aligned16(table);
+  if (!vec) return launch<T, false, GMAX>(a, p, fused, stream, plan_out);
+  switch (p.groups) {
+    case 1: return launch<T, true, 1>(a, p, fused, stream, plan_out);
+    case 2: return launch<T, true, 2>(a, p, fused, stream, plan_out);
+    case 3: return launch<T, true, 3>(a, p, fused, stream, plan_out);
+    default: return launch<T, true, 4>(a, p, fused, stream, plan_out);
+  }
 }
 
 template <typename T, bool VEC>
@@ -445,19 +760,6 @@ int launch_wgrad(const void* x, const void* g, const int32_t* table, float* dw, 
   return int(cudaGetLastError());
 }
 
-template <typename T, bool VEC>
-int launch_bwd_fused(const void* x, const void* g, const float* w, const int32_t* table,
-                     void* dx, float* dw, int b, int n, int k_vol, int c, cudaStream_t stream) {
-  const int lanes = (c + 7) / 8, rows = THREADS / lanes;
-  const int kc = round_offsets(k_vol, rows, 24 * 1024);
-  const size_t smem = size_t(rows) * lanes * 8 * sizeof(float) + lists_bytes(kc, rows);
-  const dim3 grid((n + rows - 1) / rows, b);
-  depth_bwd_fused<T, VEC><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), w, table, static_cast<T*>(dx), dw, n,
-      k_vol, c, lanes, kc);
-  return int(cudaGetLastError());
-}
-
 bool bad_shape(int b, int k_vol, int c) {
   return b < 0 || k_vol < 0 || c <= 0 || c > MAX_CHANNELS || b > 65535 || k_vol > 65535;
 }
@@ -469,16 +771,15 @@ bool bad_shape(int b, int k_vol, int c) {
 extern "C" int wct_depth_fwd(const void* x, const float* w, const int32_t* table, void* out,
                              int b, int n_in, int n_out, int k_vol, int c, int dtype,
                              cudaStream_t stream) {
-  if (bad_shape(b, k_vol, c)) return int(cudaErrorInvalidValue);
+  if (bad_shape(b, k_vol, c) || dtype < 0 || dtype > 1) return int(cudaErrorInvalidValue);
   if (b == 0 || n_out == 0) return 0;
+  if (k_vol == 0)
+    return int(cudaMemsetAsync(out, 0, size_t(b) * n_out * c * (dtype == 0 ? 4 : 2), stream));
   const bool vec = vec_ok(c, x, w, out);
-  if (dtype == 0)
-    return vec ? launch_fwd<float, true>(x, w, table, out, b, n_in, n_out, k_vol, c, stream)
-               : launch_fwd<float, false>(x, w, table, out, b, n_in, n_out, k_vol, c, stream);
-  if (dtype == 1)
-    return vec ? launch_fwd<bf16, true>(x, w, table, out, b, n_in, n_out, k_vol, c, stream)
-               : launch_fwd<bf16, false>(x, w, table, out, b, n_in, n_out, k_vol, c, stream);
-  return int(cudaErrorInvalidValue);
+  return dtype == 0 ? run<float>(x, nullptr, w, table, out, nullptr, nullptr, b, n_in, n_out,
+                                 k_vol, c, vec, false, stream, nullptr)
+                    : run<bf16>(x, nullptr, w, table, out, nullptr, nullptr, b, n_in, n_out,
+                                k_vol, c, vec, false, stream, nullptr);
 }
 
 extern "C" int wct_depth_wgrad(const void* x, const void* g, const int32_t* table, float* dw,
@@ -496,17 +797,20 @@ extern "C" int wct_depth_wgrad(const void* x, const void* g, const int32_t* tabl
   return int(cudaErrorInvalidValue);
 }
 
+// count: an int64 counter to which the launch adds the floats its dw blocks
+// add into dw (may be null). plan (may be null): 2 ints written before the
+// launch, its dw blocks (one for each offset and chunk of rows of each
+// scene) and the rows of a chunk.
 extern "C" int wct_depth_bwd_fused(const void* x, const void* g, const float* w,
                                    const int32_t* table, void* dx, float* dw, int b, int n,
-                                   int k_vol, int c, int dtype, cudaStream_t stream) {
-  if (bad_shape(b, k_vol, c) || k_vol == 0) return int(cudaErrorInvalidValue);
+                                   int k_vol, int c, int dtype, unsigned long long* count,
+                                   int* plan, cudaStream_t stream) {
+  if (bad_shape(b, k_vol, c) || k_vol == 0 || dtype < 0 || dtype > 1)
+    return int(cudaErrorInvalidValue);
   if (b == 0 || n == 0) return 0;
   const bool vec = vec_ok(c, x, g, w, dx) && aligned16(dw);
-  if (dtype == 0)
-    return vec ? launch_bwd_fused<float, true>(x, g, w, table, dx, dw, b, n, k_vol, c, stream)
-               : launch_bwd_fused<float, false>(x, g, w, table, dx, dw, b, n, k_vol, c, stream);
-  if (dtype == 1)
-    return vec ? launch_bwd_fused<bf16, true>(x, g, w, table, dx, dw, b, n, k_vol, c, stream)
-               : launch_bwd_fused<bf16, false>(x, g, w, table, dx, dw, b, n, k_vol, c, stream);
-  return int(cudaErrorInvalidValue);
+  return dtype == 0 ? run<float>(g, x, w, table, dx, dw, count, b, n, n, k_vol, c, vec, true,
+                                 stream, plan)
+                    : run<bf16>(g, x, w, table, dx, dw, count, b, n, n, k_vol, c, vec, true,
+                                stream, plan);
 }

@@ -50,8 +50,9 @@ _SIGNATURES = {
     "wct_depth_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # int wct_depth_wgrad(x, g, table, dw, b, n_in, n_out, k, c, dtype, stream)
     "wct_depth_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # int wct_depth_bwd_fused(x, g, w, table, dx, dw, b, n, k, c, dtype, stream)
-    "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # int wct_depth_bwd_fused(x, g, w, table, dx, dw, b, n, k, c, dtype, count,
+    #                         plan, stream)
+    "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # int wct_segment_attention_fwd(q, k, v, seg_q, seg_kv, out, lse, b, sq, skv, h, d,
     #                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, dtype, stream)
     "wct_segment_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -8,7 +8,7 @@ table), the weight gradient K7 and the fused self-map backward K8. Ports of
 - K7 ``_depth_wgrad_kernel`` (:261, entry ``depthwise_fma_wgrad`` :607):
   ``dw[k, c] = sum_{b, o} x[b, table[b, k, o], c] * g[b, o, c]``, fp32.
 - K8 ``_depth_bwd_fused_kernel`` (:367, entry ``depthwise_fma_bwd_fused``
-  :692): dx and dw of a symmetric self-map in one pass.
+  :692): dx and dw of a symmetric self-map in one launch.
 
 Unlike the dense conv, features stay in their dtype (fp32 or bf16) and the
 weight stays fp32; products and sums are fp32 (the JAX explicit scans,
@@ -17,11 +17,22 @@ dtype, dw in fp32. A -1 table entry adds exactly zero. Each wrapper runs its
 CUDA kernel (``csrc/depthwise_fma.cu``) on CUDA tensors and its ``*_plain``
 version on CPU tensors, counts its launches in ``.launches``, and raises on
 what its kernel does not take.
+
+K6 walks tiles of 64 or 128 rows with the table tile of each round of 32
+offsets staged ahead in shared memory; each row sums its offsets in
+ascending order with fp32 ``fmaf``, so K6's output has the same bits on
+every call. K8 is one launch of two kinds of blocks: dx blocks run K6's
+walk on ``(g, w.flip(0), table)`` (its bits), and dw blocks, one for each
+offset and chunk of rows, sum their pairs on chip and add into dw once.
+The kernel counts those floats (:func:`work_counts`), which
+:func:`bwd_fused_dw_adds` models on the host from the table and the
+launch's plan (``depthwise_fma_bwd_fused.plan``).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +97,47 @@ def depthwise_fma_bwd_fused_plain(
     _check_self_map("depthwise_fma_bwd_fused", x, table, offsets)
     dx = depthwise_fma_dgrad_plain(g, weight, table.flip(1), accum_dtype).to(x.dtype)
     return dx, depthwise_fma_wgrad_plain(x, g, table, accum_dtype)
+
+
+def bwd_fused_dw_adds(table: torch.Tensor, c: int, chunk_rows: int) -> int:
+    """Floats that K8 adds into dw on ``table`` [B, K, N] at C channels, a
+    host model of the kernel's count (:func:`work_counts`
+    ``fused_dw_floats``): each (scene, offset, chunk of ``chunk_rows``
+    rows) with a pair sums its pairs on chip and adds its C channels of
+    dw[k] once. The launch's ``chunk_rows`` is in
+    ``depthwise_fma_bwd_fused.plan``."""
+    b, k, n = table.shape
+    chunks = -(-n // chunk_rows)
+    met = torch.nn.functional.pad(table >= 0, (0, chunks * chunk_rows - n))
+    return int(met.reshape(b, k, chunks, chunk_rows).any(-1).sum()) * c
+
+
+_COUNT_KEYS = ("fused_dw_floats",)
+_work_counts: Dict[torch.device, torch.Tensor] = {}
+
+
+def _counter(device: torch.device, key: str) -> int:
+    """Address of ``key``'s int64 counter on ``device`` (the kernels add to it)."""
+    if device not in _work_counts:
+        _work_counts[device] = torch.zeros(len(_COUNT_KEYS), dtype=torch.int64, device=device)
+    return _work_counts[device].data_ptr() + 8 * _COUNT_KEYS.index(key)
+
+
+def work_counts(device) -> Dict[str, int]:
+    """What the kernels did on ``device`` since :func:`reset_work_counts`:
+    the floats K8's blocks added into dw (``fused_dw_floats``, as
+    :func:`bwd_fused_dw_adds` counts them). Synchronises."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _work_counts:
+        return dict.fromkeys(_COUNT_KEYS, 0)
+    return dict(zip(_COUNT_KEYS, _work_counts[device].tolist()))
+
+
+def reset_work_counts() -> None:
+    for c in _work_counts.values():
+        c.zero_()
 
 
 def _cuda_args(name, accum_dtype, feats, table, weight=None):
@@ -210,7 +262,8 @@ def depthwise_fma_bwd_fused(
     """K8 on CUDA tensors, :func:`depthwise_fma_bwd_fused_plain` on CPU
     tensors. Raises unless ``table`` is a self-map (n_in == n_out) over
     symmetric ``offsets``, whose reverse is ``table.flip(1)``: dx is taken
-    through that flip, as in the plain version."""
+    through that flip, as in the plain version. Each launch leaves its plan
+    in ``.plan``: its dw blocks and the rows of their chunks."""
     if x.device.type == "cpu":
         return depthwise_fma_bwd_fused_plain(x, g, weight, table, offsets, accum_dtype)
     name = "depthwise_fma_bwd_fused"
@@ -222,12 +275,15 @@ def depthwise_fma_bwd_fused(
     k_vol = table.shape[1]
     dx = torch.empty_like(x)
     dw = torch.zeros((k_vol, c), dtype=torch.float32, device=x.device)
+    plan = (ctypes.c_int * 2)()
     rc = lib.wct_depth_bwd_fused(
         x.data_ptr(), g.data_ptr(), weight.data_ptr(), table.data_ptr(),
-        dx.data_ptr(), dw.data_ptr(), b, n, k_vol, c, _DTYPE_CODES[x.dtype], stream,
+        dx.data_ptr(), dw.data_ptr(), b, n, k_vol, c, _DTYPE_CODES[x.dtype],
+        _counter(x.device, "fused_dw_floats"), ctypes.addressof(plan), stream,
     )
     _build.check(lib, rc, name)
     depthwise_fma_bwd_fused.launches += 1
+    depthwise_fma_bwd_fused.plan = dict(dw_blocks=plan[0], chunk_rows=plan[1])
     return dx, dw
 
 
@@ -235,3 +291,4 @@ depthwise_fma_fwd.launches = 0
 depthwise_fma_dgrad.launches = 0
 depthwise_fma_wgrad.launches = 0
 depthwise_fma_bwd_fused.launches = 0
+depthwise_fma_bwd_fused.plan = None
