@@ -26,14 +26,16 @@ Phases (any failure exits non-zero):
      card; a small fp32 forward checks the kernels tightly.
   6. backward kernels: K2 as dgrad and K3 on the L0 -> L1 2^3 parity map
      and its reverse, K4 on the L0 3^3 map (also timed against the K2-dgrad
-     + K3 pair, with its count of dw atomics), each against its plain
-     version at C 32 fp32 and at the bf16 shapes 128 -> 96 and 96 -> 96.
-     K2, K2-dgrad and K4 take their tiles in the maps' row orders.
-  6b. step shapes: K2, K2-dgrad and K4 at every call shape of the bf16
+     + K3 pair), each against its plain version at C 32 fp32 and at the
+     bf16 shapes 128 -> 96 and 96 -> 96, K3 and K4 with the floats their dw
+     blocks add with atomics (their own counts) held against the host
+     model. K2, K2-dgrad and K4 take their tiles in the maps' row orders.
+  6b. step shapes: K2, K2-dgrad, K3 and K4 at every call shape of the bf16
      MinkUNet18 train step on the bench pair (the 3^3 maps of L0-L4 and the
      2^3 maps and their reverses), each against its plain version, timed,
-     with its bound and launches a step; each map's tile work over its
-     useful pairs in the index order and in its row order.
+     with its bound and launches a step (K3 and K4 with their dw counts
+     against the host model); each map's tile work over its useful pairs
+     in the index order and in its row order.
   7. train: MinkUNet18 (bf16 compute, fp32 params, seeded weights and
      labels, Adam 1e-3) takes 5 steps on one bench scene pair on the kernel
      path and 5 from the same state on the plain path. Checks 5 K1, 40 K2,
@@ -47,9 +49,9 @@ Phases (any failure exits non-zero):
      (bf16, fp32) and on the L0 3^3 map at C 96 and 384; K6 as dgrad and K7
      on the L0 -> L1 2^3 parity map and its reverse; K8 on the 7^3 and 3^3
      self-maps. Each against its plain version, timed; K8's dx also with
-     the bits of K6 on (g, w flipped), and the floats its blocks add into
-     dw (its own count, ``depthwise_fma.work_counts``) held against the
-     host model ``bwd_fused_dw_adds``.
+     the bits of K6 on (g, w flipped), and the floats K7's and K8's blocks
+     add into dw (their own counts, ``depthwise_fma.work_counts``) held
+     against the host model ``bwd_fused_dw_adds``.
  10. convnext: SparseConvNeXtBlock(96, kernel 7) on the bench scene pair
      (bf16 features, fp32 parameters, seeded weights): fwd+bwd of
      sum(out^2) with 1 K1, 1 K6 and 1 K8 launch, an inference forward with
@@ -306,6 +308,18 @@ def card_state() -> str:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def wgrad_nbytes(x, g, table, dw) -> int:
+    """Bytes a weight gradient ``dw[k] = sum x[b, table[b, k, o]]^T g[b, o]``
+    (K3, K7) must move: the table and dw once, the x rows that an entry
+    names and the g rows that hold a pair; padding rows and rows without
+    a pair need not be read."""
+    valid = table >= 0
+    x_rows = sum(int(torch.unique(t[v]).numel()) for t, v in zip(table, valid))
+    g_rows = int(valid.any(1).sum())
+    return (nbytes(table, dw) + x_rows * x.shape[2] * x.element_size()
+            + g_rows * g.shape[2] * g.element_size())
 
 
 def make_batch(seed: int, n_cap: int, device, channels: int = 3, scale: float = 1.0,
@@ -618,9 +632,14 @@ def phase_bwd(vox, table3):
             rev, rev_order = bpt.rev.contiguous(), bpt.rev_order
             dx = ig.implicit_gemm_dgrad(g, w, rev, order=rev_order)
             ref_dx = ig.implicit_gemm_dgrad_plain(g, w, rev)
+            ig.reset_work_counts()
             dw = ig.implicit_gemm_wgrad(x, g, bpt.table)
+            floats, plan = ig.work_counts(x.device)["wgrad_dw_floats"], ig.implicit_gemm_wgrad.plan
             ref_dw = ig.implicit_gemm_wgrad_plain(x, g, bpt.table)
             torch.cuda.synchronize()
+            model = ig.bwd_fused_dw_atomics(bpt.table, c_in, c_out, plan["chunk_rows"])
+            check(floats == model, f"K3 {name} {tag}: {floats} dw floats added, the model "
+                  f"counts {model}")
             torch.testing.assert_close(dx.float(), ref_dx.float(), **K2_TOL[dtype])
             dx_err = float((dx.float() - ref_dx.float()).abs().max())
             w_err = dw_err(dw, ref_dw)
@@ -634,12 +653,13 @@ def phase_bwd(vox, table3):
             pairs = int((bpt.table >= 0).sum())
             flops = 2.0 * pairs * c_in * c_out
             dgrad_bound = bound(nbytes(g, w, rev, dx), flops, dtype)
-            wgrad_bound = bound(nbytes(x, g, bpt.table, dw), flops, dtype)
+            wgrad_bound = bound(wgrad_nbytes(x, g, bpt.table, dw), flops, dtype)
             log(f"{name} {tag} ({pairs} pairs): K2-dgrad max_abs_err {dx_err:.3e}, "
                 f"{t['dgrad']:.4f} ms, plain {t['dgrad_plain']:.4f} ms; K3 rel err "
                 f"{w_err:.3e} (max_abs {w_abs:.3e}), {t['wgrad']:.4f} ms, "
                 f"plain {t['wgrad_plain']:.4f} ms; bounds {dgrad_bound[0]:.4f} / "
-                f"{wgrad_bound[0]:.4f} ms")
+                f"{wgrad_bound[0]:.4f} ms; K3 added {floats} dw floats (as the host model "
+                f"counts) from {plan['dw_blocks']} blocks of {plan['chunk_rows']} rows")
             if name.startswith("transposed") and (c_in, c_out) == (96, 96):
                 shape = f"B={B} K=8 N_in={n_in} N_out={n_out} C 96->96 bf16 ({name} 2^3 map)"
                 entries["dgrad"] = dict(
@@ -655,6 +675,7 @@ def phase_bwd(vox, table3):
                     replaces="warpconvnet_tpu/kernels/implicit_gemm.py:683",
                     shape=shape, max_abs_err=w_abs, ms=t["wgrad"], plain_ms=t["wgrad_plain"],
                     bound_ms=wgrad_bound[0], bound_by=wgrad_bound[1], library_ms=None,
+                    dw_atomic_floats=floats, chunk_rows=plan["chunk_rows"],
                 )
         # The L0 3^3 self-map: K4, its plain version, and the split pair.
         x = rand((B, n0, c_in)).to(dtype)
@@ -730,10 +751,11 @@ def step_maps(vox):
 def step_shapes(subs, downs):
     """(kind, label, table, its order, rows of the gathered side, c_in,
     c_out, launches a step, the self-map for K4 or None) of every K2,
-    K2-dgrad and K4 call shape of a MinkUNet18 train step on
+    K2-dgrad, K3 and K4 call shape of a MinkUNet18 train step on
     ``step_maps``' maps. A dgrad's c_in / c_out are those of its product:
-    g's channels in, the conv's input channels out. (A port whose maps
-    carry no row orders gets None.)"""
+    g's channels in, the conv's input channels out; K3's gathered side is
+    x, its g has the table's rows, and it takes no order. (A port whose
+    maps carry no row orders gets None.)"""
     shapes = []
     for level, sub in enumerate(subs):
         n, order = sub.table.shape[2], getattr(sub, "order", None)
@@ -748,17 +770,20 @@ def step_shapes(subs, downs):
         label = f"L{i}->L{i + 1} 2^3 {c_in}->{c_out}"
         shapes.append(("fwd", label, down.table, order, fine, c_in, c_out, 1, None))
         shapes.append(("dgrad", label, down.rev, rev_order, coarse, c_out, c_in, 1, None))
+        shapes.append(("wgrad", label, down.table, None, fine, c_in, c_out, 1, None))
         c_in, c_out = STEP_UP[i]
         label = f"L{i + 1}->L{i} 2^3 transposed {c_in}->{c_out}"
         shapes.append(("fwd", label, down.rev, rev_order, coarse, c_in, c_out, 1, None))
         shapes.append(("dgrad", label, down.table, order, fine, c_out, c_in, 1, None))
+        shapes.append(("wgrad", label, down.rev, None, coarse, c_in, c_out, 1, None))
     return shapes
 
 
 def phase_step_shapes(vox):
-    """K2, K2-dgrad and K4 at every call shape of the bf16 MinkUNet18 train
-    step on the bench pair, each against its plain version, timed, with its
-    bound and its launches a step; each map's tile work (K2's own count,
+    """K2, K2-dgrad, K3 and K4 at every call shape of the bf16 MinkUNet18
+    train step on the bench pair, each against its plain version, timed,
+    with its bound and its launches a step, K3's and K4's dw floats (their
+    own counts) against the host model; each map's tile work (K2's own count,
     checked against the host model ``tile_work``) under the index order and
     under its row order, and the order's build time, also for the maps of
     the paths that take no order (the ConvNeXt block's 7^3 self-map, Volt's
@@ -813,7 +838,8 @@ def phase_step_shapes(vox):
         log(f"{label} map {tuple(table.shape)}: a row order would take {order_ms:.4f} ms")
         del table
 
-    results = dict(fwd=[], dgrad=[], fused=[])
+    names = dict(fwd="K2", dgrad="K2-dgrad", wgrad="K3", fused="K4")
+    results = dict(fwd=[], dgrad=[], wgrad=[], fused=[])
     for kind, label, table, order, n_src, c_in, c_out, convs, sub in step_shapes(subs, downs):
         b, k, n_out = table.shape
         pairs = int((table >= 0).sum())
@@ -842,6 +868,25 @@ def phase_step_shapes(vox):
             extra = dict(dw_rel_err=dw_err, tile_work=counts["fused_tile_work"],
                          dw_atomic_floats=counts["fused_dw_floats"])
             del x, g, w, got_dx, got_dw, ref_dx, ref_dw
+        elif kind == "wgrad":  # x [b, n_src, c_in] gathered, g [b, n_out, c_out]
+            x = torch.randn((b, n_src, c_in), generator=gen, device="cuda").to(dt)
+            g = (torch.randn((b, n_out, c_out), generator=gen, device="cuda") / 300).to(dt)
+            fn = lambda: ig.implicit_gemm_wgrad(x, g, table)  # noqa: E731
+            got, floats = counted("wgrad_dw_floats", fn)
+            plan = ig.implicit_gemm_wgrad.plan
+            ref = ig.implicit_gemm_wgrad_plain(x, g, table)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            dw_err = rel_err(got, ref)
+            check(dw_err <= DW_TOL, f"K3 {label}: dw relative error {dw_err:.3e} > {DW_TOL}")
+            model = ig.bwd_fused_dw_atomics(table, c_in, c_out, plan["chunk_rows"])
+            check(floats == model, f"K3 {label}: {floats} dw floats added, the model {model}")
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(lambda: ig.implicit_gemm_wgrad_plain(x, g, table), iters=3,
+                               warmup=1)
+            b_ms, b_by = bound(wgrad_nbytes(x, g, table, got), flops, dt)
+            extra = dict(dw_rel_err=dw_err, dw_atomic_floats=floats, **plan)
+            del x, g, got, ref
         else:
             x = torch.randn((b, n_src, c_in), generator=gen, device="cuda").to(dt)
             w = (torch.randn((k, c_in, c_out), generator=gen, device="cuda") / (k * c_in) ** 0.5)
@@ -866,17 +911,19 @@ def phase_step_shapes(vox):
         results[kind].append(dict(shape=label, k=k, rows=n_out, pairs=pairs,
                                   launches_per_step=convs, max_abs_err=err, ms=ms,
                                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, **extra))
-        log(f"{dict(fwd='K2', dgrad='K2-dgrad', fused='K4')[kind]} {label} ({convs} a step, "
-            f"{pairs} pairs): max_abs_err {err:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by})"
-            + f"; tile work {extra['tile_work']}"
+        log(f"{names[kind]} {label} ({convs} a step, {pairs} pairs): max_abs_err {err:.3e}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})"
+            + (f"; tile work {extra['tile_work']}" if "tile_work" in extra else "")
             + (f"; dw rel err {extra['dw_rel_err']:.3e}, {extra['dw_atomic_floats']} dw floats "
-               "added with atomics" if kind == "fused" else ""))
+               "added with atomics" if "dw_rel_err" in extra else "")
+            + (f" from {extra['dw_blocks']} blocks of {extra['chunk_rows']} rows"
+               if kind == "wgrad" else ""))
     for kind, rows in results.items():
         total = sum(r["ms"] * r["launches_per_step"] for r in rows)
+        bound_total = sum(r["bound_ms"] * r["launches_per_step"] for r in rows)
         launches = sum(r["launches_per_step"] for r in rows)
-        log(f"{dict(fwd='K2', dgrad='K2-dgrad', fused='K4')[kind]} over a MinkUNet18 step's "
-            f"shapes: {launches} launches, {total:.4f} ms by the shapes' times; card {card_name()}")
+        log(f"{names[kind]} over a MinkUNet18 step's shapes: {launches} launches, {total:.4f} ms "
+            f"by the shapes' times, bound {bound_total:.4f} ms; card {card_name()}")
     return results, map_rows
 
 
@@ -958,13 +1005,17 @@ def phase_depthwise(vox, table3):
         g = rand((B, n1, c), dtype)
         w = rand((8, c), torch.float32, 8 ** -0.5)
         dx = dw.depthwise_fma_dgrad(g, w, rev)
+        dw.reset_work_counts()
         dwt = dw.depthwise_fma_wgrad(x, g, down.table)
+        adds, plan = dw.work_counts(x.device)["wgrad_dw_floats"], dw.depthwise_fma_wgrad.plan
         ref_dx = dw.depthwise_fma_dgrad_plain(g, w, rev)
         ref_dw = dw.depthwise_fma_wgrad_plain(x, g, down.table)
         torch.cuda.synchronize()
         torch.testing.assert_close(dx.float(), ref_dx.float(), **K2_TOL[dtype])
         w_err = rel_err(dwt, ref_dw)
         check(w_err <= DW_TOL, f"K7 dw relative error {w_err:.3e} > {DW_TOL}")
+        model = dw.bwd_fused_dw_adds(down.table, c, plan["chunk_rows"])
+        check(adds == model, f"K7: {adds} floats added into dw, host model {model}")
         dx_err = float((dx.float() - ref_dx.float()).abs().max())
         w_abs = float((dwt - ref_dw).abs().max())
         t = dict(
@@ -974,18 +1025,20 @@ def phase_depthwise(vox, table3):
             wgrad_plain=cuda_ms(lambda: dw.depthwise_fma_wgrad_plain(x, g, down.table)),
         )
         bd_d = bound(nbytes(g, w, rev, dx), 2.0 * pairs2 * c, dtype)
-        bd_w = bound(nbytes(x, g, down.table, dwt), 2.0 * pairs2 * c, dtype)
+        bd_w = bound(wgrad_nbytes(x, g, down.table, dwt), 2.0 * pairs2 * c, dtype)
         tag = f"C {c} {str(dtype)[6:]}"
         log(f"L0->L1 2^3 parity map {tag} ({pairs2} pairs): K6-dgrad max_abs_err {dx_err:.3e}, "
             f"{t['dgrad']:.4f} ms, plain {t['dgrad_plain']:.4f} ms, bound {bd_d[0]:.4f} ms; "
             f"K7 rel err {w_err:.3e} (max_abs {w_abs:.3e}), {t['wgrad']:.4f} ms, plain "
-            f"{t['wgrad_plain']:.4f} ms, bound {bd_w[0]:.4f} ms")
+            f"{t['wgrad_plain']:.4f} ms, bound {bd_w[0]:.4f} ms; K7 adds {adds} floats into dw "
+            f"(host model {model}) from {plan['dw_blocks']} blocks of {plan['chunk_rows']} rows")
         if dtype == torch.bfloat16:
             shape = f"B={B} K=8 N_in={n0} N_out={n1} {tag}"
             entries["ddgrad"] = depth_entry("ddgrad", "L0->L1 2^3 parity map, through rev",
                                             shape, dx_err, t["dgrad"], t["dgrad_plain"], bd_d)
             entries["dwgrad"] = depth_entry("dwgrad", "L0->L1 2^3 parity map", shape, w_abs,
                                             t["wgrad"], t["wgrad_plain"], bd_w)
+            entries["dwgrad"].update(dw_floats=adds, chunk_rows=plan["chunk_rows"])
 
     # K8 on the 7^3 (path A) and 3^3 self-maps, and the split pair it saves.
     for label, table, rev_t, pairs, dtypes in (
@@ -1886,6 +1939,7 @@ def main() -> int:
     step_shape_results, step_map_rows = phase_step_shapes(vox)
     k2["step_shapes"], k2["step_maps"] = step_shape_results["fwd"], step_map_rows
     bwd["dgrad"]["step_shapes"] = step_shape_results["dgrad"]
+    bwd["wgrad"]["step_shapes"] = step_shape_results["wgrad"]
     bwd["fused"]["step_shapes"] = step_shape_results["fused"]
     depth = phase_depthwise(vox, table)
     del table, vox

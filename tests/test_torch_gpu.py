@@ -258,6 +258,9 @@ def _bwd_cases(cuda, c_in, c_out, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("c_in,c_out", [(12, 20), (32, 32), (128, 96), (96, 96), (384, 256)])
 def test_k2_dgrad_and_k3_match_plain(cuda, dtype, c_in, c_out):
+    """On the three map kinds; K3 also with the floats its blocks add into
+    dw (its own count) equal to the host model at its plan's chunk rows,
+    and exact zeros for the self-map's emptied offset."""
     for name, x, g, bpt in _bwd_cases(cuda, c_in, c_out, dtype):
         k = bpt.table.shape[1]
         w = (torch.randn((k, c_in, c_out), device=cuda) / (k * c_in) ** 0.5).to(dtype)
@@ -265,7 +268,10 @@ def test_k2_dgrad_and_k3_match_plain(cuda, dtype, c_in, c_out):
                        implicit_gemm.implicit_gemm_dgrad.launches,
                        implicit_gemm.implicit_gemm_wgrad.launches)
         dx = implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev)
+        implicit_gemm.reset_work_counts()
         dw = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
+        floats = implicit_gemm.work_counts(cuda)["wgrad_dw_floats"]
+        plan = implicit_gemm.implicit_gemm_wgrad.plan
         ref_dx = implicit_gemm.implicit_gemm_dgrad_plain(g, w, bpt.rev)
         ref_dw = implicit_gemm.implicit_gemm_wgrad_plain(x, g, bpt.table)
         torch.cuda.synchronize()
@@ -277,6 +283,51 @@ def test_k2_dgrad_and_k3_match_plain(cuda, dtype, c_in, c_out):
         torch.testing.assert_close(dw, ref_dw, **DW_TOL, msg=name)
         unreached = (bpt.rev < 0).all(dim=1)
         assert bool((dx[unreached] == 0).all()), name
+        assert floats == implicit_gemm.bwd_fused_dw_atomics(
+            bpt.table, c_in, c_out, plan["chunk_rows"]) > 0, name
+        if name == "submanifold":
+            assert bool((dw[4] == 0).all()), name  # the emptied offset adds exactly zero
+
+
+def _small_down_map(cuda, c, dtype):
+    """A 2^3 stride-2 map of two scenes of a few hundred voxels, 700 fine
+    rows to 600 coarse ones (neither a multiple of 256), with the features
+    of both sides."""
+    vox = _voxels(5, cuda, n=700, c=c).lex_sort()
+    _, _, down, _ = generate_output_coords_and_kernel_map(vox, 2, stride=2, out_capacity=600)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    coarse = torch.randn((2, down.table.shape[2], c), generator=gen, device=cuda)
+    return [("strided", vox.features.to(dtype).contiguous(), down),
+            ("transposed", coarse.to(dtype), down.reversed())]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [20, 96])
+def test_k3_and_k7_on_a_small_map_take_the_shortest_chunks(cuda, dtype, c):
+    """A map of a few hundred rows: K3 halves its chunks down to the
+    shortest (256 rows, a ragged last one) to give the card blocks; K3 and
+    K7 match their plain versions and count what the host models count."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    for name, x, bpt in _small_down_map(cuda, c, dtype):
+        n_out = bpt.table.shape[2]
+        assert 256 < n_out < 1024 and n_out % 256 != 0, name
+        g = (torch.randn((2, n_out, c), generator=gen, device=cuda) / n_out ** 0.5).to(dtype)
+        implicit_gemm.reset_work_counts()
+        depthwise_fma.reset_work_counts()
+        dw3 = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
+        dw7 = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+        plan3, plan7 = implicit_gemm.implicit_gemm_wgrad.plan, depthwise_fma.depthwise_fma_wgrad.plan
+        floats3 = implicit_gemm.work_counts(cuda)["wgrad_dw_floats"]
+        floats7 = depthwise_fma.work_counts(cuda)["wgrad_dw_floats"]
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dw3, implicit_gemm.implicit_gemm_wgrad_plain(x, g, bpt.table),
+                                   **DW_TOL, msg=name)
+        torch.testing.assert_close(dw7, depthwise_fma.depthwise_fma_wgrad_plain(x, g, bpt.table),
+                                   **DW_TOL, msg=name)
+        assert plan3["chunk_rows"] == 256, name
+        assert floats3 == implicit_gemm.bwd_fused_dw_atomics(bpt.table, c, c, 256) > 0, name
+        assert floats7 == depthwise_fma.bwd_fused_dw_adds(bpt.table, c,
+                                                          plan7["chunk_rows"]) > 0, name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -425,14 +476,38 @@ def test_k7_matches_plain(cuda, dtype, c):
         n_out = bpt.table.shape[2]
         g = (torch.randn((2, n_out, c), generator=gen, device=cuda) / n_out ** 0.5).to(dtype)
         before = depthwise_fma.depthwise_fma_wgrad.launches
+        depthwise_fma.reset_work_counts()
         dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+        adds = depthwise_fma.work_counts(cuda)["wgrad_dw_floats"]
+        plan = depthwise_fma.depthwise_fma_wgrad.plan
         ref = depthwise_fma.depthwise_fma_wgrad_plain(x, g, bpt.table)
         torch.cuda.synchronize()
         assert depthwise_fma.depthwise_fma_wgrad.launches == before + 1, name
         assert dw.dtype == torch.float32 and dw.shape == (bpt.table.shape[1], c), name
         torch.testing.assert_close(dw, ref, **DW_TOL, msg=name)
+        assert adds == depthwise_fma.bwd_fused_dw_adds(bpt.table, c, plan["chunk_rows"]) > 0, name
         if name != "2^3":
             assert bool((dw[1] == 0).all()), name  # the emptied offset adds exactly zero
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [20, 96, 384])
+def test_k7_on_the_conv_maps_matches_plain_and_counts_its_adds(cuda, dtype, c):
+    """K7 on the dense conv backward's three map kinds (a self-map with an
+    emptied offset, a strided map and its reverse, whose x and g have their
+    own row counts), with the floats its blocks add into dw (its own
+    count) equal to the host model at its plan's chunk rows."""
+    for name, x, g, bpt in _bwd_cases(cuda, c, c, dtype):
+        depthwise_fma.reset_work_counts()
+        dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+        adds = depthwise_fma.work_counts(cuda)["wgrad_dw_floats"]
+        plan = depthwise_fma.depthwise_fma_wgrad.plan
+        ref = depthwise_fma.depthwise_fma_wgrad_plain(x, g, bpt.table)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dw, ref, **DW_TOL, msg=name)
+        assert adds == depthwise_fma.bwd_fused_dw_adds(bpt.table, c, plan["chunk_rows"]) > 0, name
+        if name == "submanifold":
+            assert bool((dw[4] == 0).all()), name  # the emptied offset adds exactly zero
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

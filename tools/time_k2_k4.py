@@ -1,6 +1,6 @@
-"""Time the implicit-GEMM kernels K2 (forward and dgrad) and K4 on the card
-at the shapes of a bf16 MinkUNet18 train step, for one checkout of the port
-or several in turn.
+"""Time the implicit-GEMM kernels K2 (forward and dgrad), K3 and K4 on the
+card at the shapes of a bf16 MinkUNet18 train step, for one checkout of the
+port or several in turn.
 
     python3 tools/time_k2_k4.py                                 # this checkout
     python3 tools/time_k2_k4.py --tree A --tree B --tree B --tree A
@@ -17,18 +17,21 @@ lex-sorted). A tree whose maps carry row orders gets them; one whose
 wrappers take no ``order`` is called without.
 
 Prints the card's name and power limit, then one JSON line per tree: per
-shape (kind fwd / dgrad / fused, launches a step), the time a call by CUDA
+shape (kind fwd / dgrad / wgrad / fused, launches a step; and K3 and K4 in
+fp32, kinds wgrad_fp32 and fused_fp32, at chip_smoke.py phase_bwd's C
+32->32 on the L0 2^3 map and its reverse and on the L0 3^3 map, outside the
+step's sums), the time a call by CUDA
 events back to back (``ms``) and from a profiler trace (``device_ms``: the
 call's kernels, its weight packing and dw memset included), the host's
 time to issue one call (``host_ms``), for K4 also the split pair
 K2-dgrad + K3 by events (``pair_ms``), and a SHA-1 of K2's and
 K2-dgrad's output (equal across runs of one tree: deterministic; the
-trees' digests differ where they sum in other orders); the events-weighted
-sums a step; then bf16 MinkUNet18 forwards (eval mode, CUDA events; 6 by
+trees' digests differ where they sum in other orders), for K3 its plan;
+the events-weighted sums a step, and K3's by trace (``wgrad_device``); then bf16 MinkUNet18 forwards (eval mode, CUDA events; 6 by
 default) and train steps (9 by default), the first of each left out: per
 step the host's time to issue it (until ``step()`` returns) and to finish
 it (after a synchronise), and one profiled step's device busy time, span,
-idle share and K2 / K4 device time by kernel name. Last, one ``summary``
+idle share and K2 / K3 / K4 device time by kernel name. Last, one ``summary``
 line pools each tree's runs: the median, least and most forward ms, step
 ms and issue ms, and their counts.
 """
@@ -78,6 +81,20 @@ def shape_times(cs, torch, vox):
     dt = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
+
+    def timed(row, fn):
+        row["ms"], row["device_ms"] = cs.cuda_ms(fn), cs.device_ms(fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(CALLS):
+            fn()
+        row["host_ms"] = (time.perf_counter() - t0) * 1e3 / CALLS
+        torch.cuda.synchronize()
+        if row["kind"].startswith("wgrad"):  # K3's blocks and chunk rows, where the tree has them
+            row["plan"] = getattr(ig.implicit_gemm_wgrad, "plan", None)
+        rows.append(row)
+        cs.log(f"{row['shape']} {row['kind']}: {row}")
+
     for kind, label, table, order, n_src, c_in, c_out, convs, sub in cs.step_shapes(subs, downs):
         b, k, n_out = table.shape
         w = (torch.randn((k, c_in, c_out), generator=gen, device="cuda") / (k * c_in) ** 0.5)
@@ -93,6 +110,12 @@ def shape_times(cs, torch, vox):
 
             row["pair_ms"] = cs.cuda_ms(lambda: (ig.implicit_gemm_dgrad(g, w, rev, **kw(order)),
                                                  ig.implicit_gemm_wgrad(x, g, table)))
+        elif kind == "wgrad":  # dw sums with atomics: its bits vary, so no digest
+            x = torch.randn((b, n_src, c_in), generator=gen, device="cuda").to(dt)
+            g = (torch.randn((b, n_out, c_out), generator=gen, device="cuda") / 300).to(dt)
+
+            def fn():
+                return ig.implicit_gemm_wgrad(x, g, table)
         else:
             x = torch.randn((b, n_src, c_in), generator=gen, device="cuda").to(dt)
             if kind == "fwd":
@@ -104,24 +127,41 @@ def shape_times(cs, torch, vox):
                 def fn():
                     return ig.implicit_gemm_dgrad(x, wd, table, **kw(order))
             row["sha1"] = sha1(fn())
-        row["ms"], row["device_ms"] = cs.cuda_ms(fn), cs.device_ms(fn)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(CALLS):
-            fn()
-        row["host_ms"] = (time.perf_counter() - t0) * 1e3 / CALLS
-        torch.cuda.synchronize()
-        rows.append(row)
-        cs.log(f"{label} {kind}: {row}")
+        timed(row, fn)
+    # K3 in fp32 at chip_smoke.py phase_bwd's C 32->32, on the L0 2^3 map
+    # and its reverse (outside the bf16 step's sums).
+    down = downs[0]
+    for label, table, n_src in (("L0->L1 2^3 32->32 fp32", down.table, down.rev.shape[2]),
+                                ("L1->L0 2^3 transposed 32->32 fp32", down.rev,
+                                 down.table.shape[2])):
+        b, _, n_out = table.shape
+        x = torch.randn((b, n_src, 32), generator=gen, device="cuda")
+        g = torch.randn((b, n_out, 32), generator=gen, device="cuda") / 300
+
+        def fn():
+            return ig.implicit_gemm_wgrad(x, g, table)
+        timed(dict(kind="wgrad_fp32", shape=label, launches_per_step=0), fn)
+    # K4 in fp32 at phase_bwd's L0 3^3 C 32->32, beside it.
+    sub = subs[0]
+    b, k, n = sub.table.shape
+    x = torch.randn((b, n, 32), generator=gen, device="cuda")
+    g = torch.randn((b, n, 32), generator=gen, device="cuda") / 300
+    w = torch.randn((k, 32, 32), generator=gen, device="cuda") / (k * 32) ** 0.5
+
+    def fn():
+        return ig.implicit_gemm_bwd_fused(x, g, w, sub.table, sub.offsets,
+                                          **kw(getattr(sub, "order", None)))
+    timed(dict(kind="fused_fp32", shape="L0 3^3 32->32 fp32", launches_per_step=0), fn)
     totals = {kind: sum(r["ms"] * r["launches_per_step"] for r in rows if r["kind"] == kind)
-              for kind in ("fwd", "dgrad", "fused")}
+              for kind in ("fwd", "dgrad", "wgrad", "fused")}
+    totals["wgrad_device"] = sum(r["device_ms"] for r in rows if r["kind"] == "wgrad")
     return rows, totals
 
 
 def step_profile(cs, torch, step, batch, labels):
     """One profiled train step: device busy ms, span ms, idle share, and
-    device ms by kernel name for K2 (``igemm_fwd``) and K4
-    (``igemm_bwd_fused``)."""
+    device ms by kernel name for K2 (``igemm_fwd``), K3 (``igemm_wgrad``)
+    and K4 (``igemm_bwd_fused``)."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile

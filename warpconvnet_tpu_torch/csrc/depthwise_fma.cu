@@ -15,13 +15,14 @@
 // `depthwise_fma_bwd_fused` :692).
 //
 // What bounds them on the card: bytes. Each valid pair costs one row gather
-// and C FMAs, so there is no arithmetic to speak of; a 7^3 map is a
-// [B, 343, N] table of which a few percent is valid, and streaming the table
-// sets the floor (360 MB of the 0.14 ms bound at the bench's 7^3 map). The
-// TPU kernels' union windows, one-hot MXU gathers, offset grouping, 128-lane
-// padding and overflow residual pass all exist because Mosaic cannot gather
-// rows by index; here a thread gathers a row segment by its index, so none
-// of them carries over, and the identity offset is an ordinary table row.
+// (K7 and K8's dw two: x and g) and C FMAs, so there is no arithmetic to
+// speak of; a 7^3 map is a [B, 343, N] table of which a few percent is
+// valid, and streaming the table sets the floor (360 MB of the 0.14 ms
+// bound at the bench's 7^3 map). The TPU kernels' union windows, one-hot
+// MXU gathers, offset grouping, 128-lane padding and overflow residual
+// pass all exist because Mosaic cannot gather rows by index; here a
+// thread gathers a row segment by its index, so none of them carries
+// over, and the identity offset is an ordinary table row.
 //
 // K6 (`depth_fwd`): persistent blocks over tiles of rows.
 // - A block owns a tile of 128 output rows (64 above 64 channels) and a
@@ -62,10 +63,11 @@
 //   gathered rows and the weight, and the atomics serialised. Weight
 //   slices staged in shared memory and TMA bulk copies of the table were
 //   slower for K6 too (all on an H100 SXM at 700 W).
-// K7 (`depth_wgrad`): a block owns one offset, one chunk of output rows and
-// all channels; it loads 8 entries ahead, sums its chunk in registers,
-// reduces over its rows in shared memory and adds C values into the zeroed
-// dw with fp32 atomics.
+// K7 (`depth_dw`): K8's dw blocks launched alone, on any map (x and g
+// with their own row counts): a block for each (offset, chunk of 8 x
+// threads output rows of a scene, channel chunk), so the table is read
+// once, each pair gathers its x and g rows once, and dw takes C floats per
+// (scene, offset, chunk) that holds a pair. The block counts them.
 #include <algorithm>
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -75,11 +77,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int THREADS = 256;        // K7's block
-constexpr int KB = 8;               // K7: table entries loaded ahead
 constexpr int MAX_CHANNELS = 1024;
-constexpr int SMS = 132;            // H100 SXM (K7's grid sizing)
-constexpr int MAX_THREADS = 512;    // K6 / K8 block
+constexpr int MAX_THREADS = 512;    // K6 / K7 / K8 block
 constexpr int GMAX = 4;             // 8-channel groups a thread owns in its row
 constexpr int CHUNK = 256;          // channels of a K6 / K8 block at most
 constexpr int KC = 32;              // offsets of a round (one lane each)
@@ -149,56 +148,7 @@ __device__ __forceinline__ void store8(bf16* p, int n_ok, const float (&v)[8]) {
 }
 
 
-// ---- K7: weight gradient ------------------------------------------------------
-
-template <typename T, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-depth_wgrad(const T* __restrict__ x, const T* __restrict__ g,
-            const int32_t* __restrict__ table, float* __restrict__ dw,
-            int n_in, int n_out, int k_vol, int c, int lanes, int chunk) {
-  __shared__ float red[THREADS * 8];  // [row][lane][8]: [row][channel]
-  const int rows = blockDim.x / lanes;
-  const int lane = threadIdx.x % lanes, ry = threadIdx.x / lanes;
-  const int b = blockIdx.z, k = blockIdx.y;
-  const int lo = blockIdx.x * chunk, hi = min(lo + chunk, n_out);
-  const int ch = lane * 8;
-  const int n_ok = min(8, c - ch);
-  const T* xb = x + int64_t(b) * n_in * c + ch;
-  const T* gb = g + int64_t(b) * n_out * c + ch;
-  const int32_t* trow = table + (int64_t(b) * k_vol + k) * n_out;
-  float acc[8] = {};
-  int any = 0;
-  for (int o0 = lo + ry; o0 < hi; o0 += rows * KB) {
-    int32_t r[KB];
-#pragma unroll
-    for (int u = 0; u < KB; ++u) {
-      const int o = o0 + u * rows;
-      r[u] = o < hi ? __ldg(trow + o) : -1;
-    }
-#pragma unroll
-    for (int u = 0; u < KB; ++u) {
-      if (r[u] < 0) continue;
-      any = 1;
-      float xv[8], gv[8];
-      load8<VEC>(xb + int64_t(r[u]) * c, n_ok, xv);
-      load8<VEC>(gb + int64_t(o0 + u * rows) * c, n_ok, gv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[e] = fmaf(xv[e], gv[e], acc[e]);
-    }
-  }
-  if (!__syncthreads_or(any)) return;  // no pair of offset k in the chunk
-#pragma unroll
-  for (int e = 0; e < 8; ++e) red[threadIdx.x * 8 + e] = acc[e];
-  __syncthreads();
-  const int width = lanes * 8;
-  for (int cc = threadIdx.x; cc < c; cc += blockDim.x) {
-    float s = 0.f;
-    for (int y = 0; y < rows; ++y) s += red[y * width + cc];
-    if (s != 0.f) atomicAdd(dw + int64_t(k) * c + cc, s);
-  }
-}
-
-// ---- K6 and K8: tiles of rows, rounds of offsets ------------------------------
+// ---- K6, K7 and K8: tiles of rows, rounds of offsets, dw blocks ---------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -290,17 +240,19 @@ struct Plan {
   int ts;       // ints a staged table row (rows + 4)
   int cw;       // channels a chunk (a multiple of 8)
   int chunks;   // channel chunks (grid.y)
-  int lgp;      // K8's dw blocks: lanes a pair (the chunk's groups, to a power of 2)
-  int dw_rows;  // K8: rows of a dw block's chunk (DW_E a thread)
+  int lgp;      // dw blocks (K7, K8): lanes a pair (the chunk's groups, to a power of 2)
+  int dw_rows;  // dw blocks: rows of a chunk (DW_E a thread)
+  int dw_smem;  // dw blocks: bytes of their pair list and partial sums
   int o_ring, o_lj, o_lk, o_cnt, smem;
 };
 
 constexpr int BARS = 128;  // bytes before the ring: NS mbarriers
-constexpr int DW_E = 8;    // K8: table entries a thread of a dw block lists
+constexpr int DW_E = 8;    // dw blocks: table entries a thread lists
 
 // Tiles of 128 rows up to 64 channels a chunk, 64 above; tpr threads a row
-// (128-512 threads). For K8 the shared memory also holds a dw block's pair
-// list and partial sums.
+// (128-512 threads). A dw block's pair list and partial sums take dw_smem
+// bytes (K7's block); for K8 (`fused`) the tile blocks' shared memory also
+// holds them.
 Plan make_plan(int k_vol, int c, bool fused) {
   Plan p{};
   p.kc = std::max(8, std::min(KC, (k_vol + 7) / 8 * 8));
@@ -324,20 +276,20 @@ Plan make_plan(int k_vol, int c, bool fused) {
   p.o_cnt = off;
   off += p.rows * 4;
   p.dw_rows = DW_E * p.threads;
-  const int dw_bytes = fused ? p.dw_rows * 8 + (p.threads / 32) * p.cw * 4 + 128 : 0;
-  p.smem = (std::max(off, dw_bytes) + 15) / 16 * 16;
+  p.dw_smem = (p.dw_rows * 8 + (p.threads / 32) * p.cw * 4 + 128 + 15) / 16 * 16;
+  p.smem = (std::max(off, fused ? p.dw_smem : 0) + 15) / 16 * 16;
   return p;
 }
 
 template <typename T>
 struct Args {
-  const T* src;        // the gathered rows: K6 x (dgrad: g), K8 g
-  const T* own;        // K8's dw blocks: x
+  const T* src;        // the gathered rows: K6 x (dgrad: g), K7 and K8 g
+  const T* own;        // dw blocks: x
   const float* w;      // [K, C]
   const int32_t* table;
   T* out;              // K6 out, K8 dx
-  float* dw;           // K8, zeroed
-  unsigned long long* count;  // K8: floats added into dw (may be null)
+  float* dw;           // K7 and K8, zeroed
+  unsigned long long* count;  // K7 and K8: floats added into dw (may be null)
   int scenes, n_in, n_out, k_vol, c;
   int tiles_per_scene, tiles;
   bool table16;        // table rows move as 16-byte copies (n_out % 4 == 0, aligned)
@@ -532,8 +484,9 @@ depth_fwd(const Args<T> a, const Plan p) {
   tile_walk<T, VEC, G, false>(a, p, smem, blockIdx.x, gridDim.x);
 }
 
-// K8's dw block d: offset k = d % K of rows [o0, o0 + dw_rows) of one
-// scene. The block lists the chunk's valid pairs (o, j = table[k, o]) in
+// The dw block d of K7 and K8: offset k = d % K of output rows [o0, o0 +
+// dw_rows) of one scene (x at n_in rows a scene, g and the table at
+// n_out). The block lists the chunk's valid pairs (o, j = table[k, o]) in
 // shared memory, then its lanes, (slot, group) with slots spread over the
 // warps, sum x[j] * g[o] over the pairs in registers, gathering U pairs
 // ahead; the sums meet over the slots in shared memory and the block adds
@@ -654,6 +607,14 @@ depth_bwd_fused(const Args<T> a, const Plan p, int n_dx) {
   else dw_chunk<T, VEC>(a, p, smem, blockIdx.x - n_dx);
 }
 
+// K7: dw blocks only.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(MAX_THREADS)
+depth_dw(const Args<T> a, const Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  dw_chunk<T, VEC>(a, p, smem, blockIdx.x);
+}
+
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // One 16-byte (or two) vector per 8 channels: C % 8 == 0, aligned bases.
@@ -686,12 +647,26 @@ cudaError_t allow_smem() {
   return err;
 }
 
+// Plan out (may be null): the launch's dw blocks (K for each chunk of
+// dw_rows rows of each scene) and the rows of a chunk.
+template <typename T>
+int64_t dw_blocks(const Args<T>& a, const Plan& p, int* plan_out) {
+  const int64_t n_dw = int64_t(a.scenes) * ((a.n_out + p.dw_rows - 1) / p.dw_rows) * a.k_vol;
+  if (plan_out != nullptr) {
+    plan_out[0] = int(n_dw);
+    plan_out[1] = p.dw_rows;
+  }
+  return n_dw;
+}
+
+enum class Mode { fwd, wgrad, fused };
+
 // K6: as many persistent blocks as fit on the card at once, at most one a
-// tile. K8: one persistent dx block an SM (at most one a tile), then the
-// dw blocks, K for each chunk of dw_rows rows of each scene.
+// tile. K7: the dw blocks alone. K8: one persistent dx block an SM (at
+// most one a tile), then the dw blocks.
 template <typename T, bool VEC, int G>
-int launch(const Args<T>& a, const Plan& p, bool fused, cudaStream_t stream, int* plan_out) {
-  if (!fused) {
+int launch(const Args<T>& a, const Plan& p, Mode mode, cudaStream_t stream, int* plan_out) {
+  if (mode == Mode::fwd) {
     auto kernel = depth_fwd<T, VEC, G>;
     cudaError_t err = allow_smem<depth_fwd<T, VEC, G>>();
     if (err != cudaSuccess) return int(err);
@@ -701,16 +676,20 @@ int launch(const Args<T>& a, const Plan& p, bool fused, cudaStream_t stream, int
     kernel<<<dim3(blocks, p.chunks), p.threads, p.smem, stream>>>(a, p);
     return int(cudaGetLastError());
   }
+  if (mode == Mode::wgrad) {
+    cudaError_t err = allow_smem<depth_dw<T, VEC>>();
+    if (err != cudaSuccess) return int(err);
+    const int64_t n_dw = dw_blocks(a, p, plan_out);
+    if (n_dw > 0x7fffffff) return int(cudaErrorInvalidValue);
+    depth_dw<T, VEC><<<dim3(unsigned(n_dw), p.chunks), p.threads, p.dw_smem, stream>>>(a, p);
+    return int(cudaGetLastError());
+  }
   auto kernel = depth_bwd_fused<T, VEC, G>;
   cudaError_t err = allow_smem<depth_bwd_fused<T, VEC, G>>();
   if (err != cudaSuccess) return int(err);
   const int n_dx = std::min(a.tiles, num_sms());
-  const int64_t n_dw = int64_t(a.scenes) * ((a.n_out + p.dw_rows - 1) / p.dw_rows) * a.k_vol;
+  const int64_t n_dw = dw_blocks(a, p, plan_out);
   if (n_dx + n_dw > 0x7fffffff) return int(cudaErrorInvalidValue);
-  if (plan_out != nullptr) {
-    plan_out[0] = int(n_dw);
-    plan_out[1] = p.dw_rows;
-  }
   kernel<<<dim3(unsigned(n_dx + n_dw), p.chunks), p.threads, p.smem, stream>>>(a, p, n_dx);
   return int(cudaGetLastError());
 }
@@ -718,8 +697,8 @@ int launch(const Args<T>& a, const Plan& p, bool fused, cudaStream_t stream, int
 template <typename T>
 int run(const void* src, const void* own, const float* w, const int32_t* table, void* out,
         float* dw, unsigned long long* count, int b, int n_in, int n_out, int k_vol, int c,
-        bool vec, bool fused, cudaStream_t stream, int* plan_out) {
-  const Plan p = make_plan(k_vol, c, fused);
+        bool vec, Mode mode, cudaStream_t stream, int* plan_out) {
+  const Plan p = make_plan(k_vol, c, mode == Mode::fused);
   Args<T> a{};
   a.src = static_cast<const T*>(src);
   a.own = static_cast<const T*>(own);
@@ -736,28 +715,16 @@ int run(const void* src, const void* own, const float* w, const int32_t* table, 
   a.tiles_per_scene = (n_out + p.rows - 1) / p.rows;
   a.tiles = b * a.tiles_per_scene;
   a.table16 = n_out % 4 == 0 && aligned16(table);
-  if (!vec) return launch<T, false, GMAX>(a, p, fused, stream, plan_out);
+  if (mode == Mode::wgrad)  // the dw blocks take no group count
+    return vec ? launch<T, true, GMAX>(a, p, mode, stream, plan_out)
+               : launch<T, false, GMAX>(a, p, mode, stream, plan_out);
+  if (!vec) return launch<T, false, GMAX>(a, p, mode, stream, plan_out);
   switch (p.groups) {
-    case 1: return launch<T, true, 1>(a, p, fused, stream, plan_out);
-    case 2: return launch<T, true, 2>(a, p, fused, stream, plan_out);
-    case 3: return launch<T, true, 3>(a, p, fused, stream, plan_out);
-    default: return launch<T, true, 4>(a, p, fused, stream, plan_out);
+    case 1: return launch<T, true, 1>(a, p, mode, stream, plan_out);
+    case 2: return launch<T, true, 2>(a, p, mode, stream, plan_out);
+    case 3: return launch<T, true, 3>(a, p, mode, stream, plan_out);
+    default: return launch<T, true, 4>(a, p, mode, stream, plan_out);
   }
-}
-
-template <typename T, bool VEC>
-int launch_wgrad(const void* x, const void* g, const int32_t* table, float* dw, int b, int n_in,
-                 int n_out, int k_vol, int c, cudaStream_t stream) {
-  const int lanes = (c + 7) / 8, rows = THREADS / lanes;
-  // Rows per block: long chunks keep the atomics few; halve them until the
-  // grid has about four blocks for each SM.
-  int chunk = 4096;
-  while (chunk > 256 && int64_t(b) * k_vol * ((n_out + chunk - 1) / chunk) < 4 * SMS) chunk /= 2;
-  const dim3 grid((n_out + chunk - 1) / chunk, k_vol, b);
-  depth_wgrad<T, VEC><<<grid, lanes * rows, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(g), table, dw, n_in, n_out, k_vol, c,
-      lanes, chunk);
-  return int(cudaGetLastError());
 }
 
 bool bad_shape(int b, int k_vol, int c) {
@@ -777,30 +744,29 @@ extern "C" int wct_depth_fwd(const void* x, const float* w, const int32_t* table
     return int(cudaMemsetAsync(out, 0, size_t(b) * n_out * c * (dtype == 0 ? 4 : 2), stream));
   const bool vec = vec_ok(c, x, w, out);
   return dtype == 0 ? run<float>(x, nullptr, w, table, out, nullptr, nullptr, b, n_in, n_out,
-                                 k_vol, c, vec, false, stream, nullptr)
+                                 k_vol, c, vec, Mode::fwd, stream, nullptr)
                     : run<bf16>(x, nullptr, w, table, out, nullptr, nullptr, b, n_in, n_out,
-                                k_vol, c, vec, false, stream, nullptr);
+                                k_vol, c, vec, Mode::fwd, stream, nullptr);
 }
 
+// count: an int64 counter to which the launch adds the floats its blocks
+// add into dw (may be null). plan (may be null): 2 ints written before the
+// launch, its blocks (one for each offset and chunk of rows of each scene)
+// and the rows of a chunk.
 extern "C" int wct_depth_wgrad(const void* x, const void* g, const int32_t* table, float* dw,
                                int b, int n_in, int n_out, int k_vol, int c, int dtype,
-                               cudaStream_t stream) {
-  if (bad_shape(b, k_vol, c)) return int(cudaErrorInvalidValue);
+                               unsigned long long* count, int* plan, cudaStream_t stream) {
+  if (plan != nullptr) plan[0] = plan[1] = 0;
+  if (bad_shape(b, k_vol, c) || dtype < 0 || dtype > 1) return int(cudaErrorInvalidValue);
   if (b == 0 || n_out == 0 || k_vol == 0) return 0;
   const bool vec = vec_ok(c, x, g, dw);
-  if (dtype == 0)
-    return vec ? launch_wgrad<float, true>(x, g, table, dw, b, n_in, n_out, k_vol, c, stream)
-               : launch_wgrad<float, false>(x, g, table, dw, b, n_in, n_out, k_vol, c, stream);
-  if (dtype == 1)
-    return vec ? launch_wgrad<bf16, true>(x, g, table, dw, b, n_in, n_out, k_vol, c, stream)
-               : launch_wgrad<bf16, false>(x, g, table, dw, b, n_in, n_out, k_vol, c, stream);
-  return int(cudaErrorInvalidValue);
+  return dtype == 0 ? run<float>(g, x, nullptr, table, nullptr, dw, count, b, n_in, n_out, k_vol,
+                                 c, vec, Mode::wgrad, stream, plan)
+                    : run<bf16>(g, x, nullptr, table, nullptr, dw, count, b, n_in, n_out, k_vol,
+                                c, vec, Mode::wgrad, stream, plan);
 }
 
-// count: an int64 counter to which the launch adds the floats its dw blocks
-// add into dw (may be null). plan (may be null): 2 ints written before the
-// launch, its dw blocks (one for each offset and chunk of rows of each
-// scene) and the rows of a chunk.
+// count and plan: as wct_depth_wgrad's, for the launch's dw blocks.
 extern "C" int wct_depth_bwd_fused(const void* x, const void* g, const float* w,
                                    const int32_t* table, void* dx, float* dw, int b, int n,
                                    int k_vol, int c, int dtype, unsigned long long* count,
@@ -809,8 +775,8 @@ extern "C" int wct_depth_bwd_fused(const void* x, const void* g, const float* w,
     return int(cudaErrorInvalidValue);
   if (b == 0 || n == 0) return 0;
   const bool vec = vec_ok(c, x, g, w, dx) && aligned16(dw);
-  return dtype == 0 ? run<float>(g, x, w, table, dx, dw, count, b, n, n, k_vol, c, vec, true,
-                                 stream, plan)
-                    : run<bf16>(g, x, w, table, dx, dw, count, b, n, n, k_vol, c, vec, true,
-                                stream, plan);
+  return dtype == 0 ? run<float>(g, x, w, table, dx, dw, count, b, n, n, k_vol, c, vec,
+                                 Mode::fused, stream, plan)
+                    : run<bf16>(g, x, w, table, dx, dw, count, b, n, n, k_vol, c, vec,
+                                Mode::fused, stream, plan);
 }

@@ -1,6 +1,15 @@
-// Device routines of the implicit-GEMM kernels K2 (implicit_gemm.cu: the
-// forward, and dgrad through the reverse table) and K4
-// (implicit_gemm_bwd_fused.cu: the fused self-map backward).
+// Device routines of the implicit-GEMM kernels: K2 (implicit_gemm.cu: the
+// forward, and dgrad through the reverse table), K3 (implicit_gemm_wgrad.cu:
+// the weight gradient of any map) and K4 (implicit_gemm_bwd_fused.cu: the
+// fused backward of a symmetric self-map). They replace, in
+// warpconvnet_tpu/kernels/implicit_gemm.py, `_igemm_kernel` (:546),
+// `_igemm_wgrad_kernel` (:683) and `_igemm_bwd_fused_kernel` (:801).
+//
+// What bounds them on the card: the row gathers. A pair costs one row of x
+// (or g) gathered by index and C_in x C_out multiply-adds, so at the
+// MinkUNet18 step's widths (32-384 channels) the bytes moved, not the
+// tensor cores, set the floor; what the design controls is how many
+// gathered rows, table entries and flushed dw floats are not useful work.
 //
 // A tile is 64 output rows taken in the map's row order (`order[b, i]`, a
 // permutation of each scene's rows that puts rows with equal offset masks
@@ -35,13 +44,21 @@
 // keeps CUDA-core FMAs (TF32 would change the numerics) over 64 x 64
 // tiles, with the same rows and list.
 //
-// K4's weight gradient (`dw_chunk_bf16`, `dw_chunk_f32`) runs per (offset
-// k, a chunk of input channels, 64 output channels a warpgroup (fp32: 64
-// a block), a chunk of rows): the chunk's valid pairs of offset k are
-// compacted into shared memory, then gathered 64 pairs a step through the
-// same kind of ring and summed on the tensor cores (bf16: dw^T = G^T X, both operands
-// MN-major, each warpgroup 64 output channels x the whole input chunk in
-// registers) into accumulators added into dw once per block.
+// The weight gradient dw[k] = sum x[table[b, k, o]]^T g[o] (`dw_chunk_bf16`,
+// `dw_chunk_f32`), shared by K3 (every map: x and g with their own row
+// counts) and K4's dw blocks (a self-map), runs per (offset k, a chunk of
+// input channels, 64 output channels a warpgroup (fp32: 64 a block), a
+// chunk of output rows, scene; `DwGrid`): the chunk's valid pairs of
+// offset k are compacted into shared memory (`PairList`), then their g and x rows gathered 64 pairs a step through the
+// same kind of ring and summed on the tensor cores (bf16: dw^T = G^T X,
+// both operands MN-major, each warpgroup 64 output channels x the whole
+// input chunk in registers; fp32: 64 x 64 FMA tiles) into accumulators
+// added into dw once per block with float4 atomics. So x, g and the table
+// are read once per (input chunk, output-channel block), gathers touch
+// only rows with a pair, and dw takes C_in x C_out floats per (scene,
+// offset, chunk) that holds a pair; long chunks keep those flushes few on
+// big maps, short ones fill the card on small maps (K3 picks the chunk
+// length at launch, `plan_dw`; K4 keeps fixed ones).
 //
 // Counts: the first column chunk's blocks add their tile work, 64 rows
 // for each (tile, listed offset) that the tile computes, to `work`; each
@@ -65,8 +82,8 @@ constexpr int BK = 64;        // input channels of one bf16 step
 constexpr int KC = 32;        // offsets of one slab
 constexpr int WG = 128;       // threads of the bf16 roles: one warpgroup
 constexpr int F_THREADS = 256;  // threads of the fp32 roles
-constexpr int DW_ROWS = 4096;   // rows of a bf16 weight-gradient chunk
-constexpr int F_DW_ROWS = 2048; // rows of an fp32 weight-gradient chunk
+constexpr int DW_ROWS = 4096;   // rows of a bf16 weight-gradient chunk (K4; K3's longest)
+constexpr int F_DW_ROWS = 2048; // rows of an fp32 one (K4; K3's longest)
 constexpr int DW_PAIRS = 64;    // pairs of one weight-gradient step
 
 // ---- PTX beside hopper.cuh ---------------------------------------------------
@@ -515,39 +532,63 @@ __device__ __forceinline__ void gather_gemm_f32(
   }
 }
 
-// ---- K4's weight gradient: a chunk of rows of one offset ---------------------
+// ---- the weight gradient (K3, K4's dw blocks): a chunk of rows of one offset
 
-// The valid pairs (table entry, row) of rows lo .. hi - 1 (hi - lo <=
-// ROWS) of table[b, k], compacted in row order: warp w compacts its own
-// segment of the chunk into its own segment of the list (its loads issued
-// together first), so no block barrier runs inside.
-template <int NT, int ROWS>
+// The dw blocks: (k, input-channel chunk, co_width output channels, chunk
+// of `rows` output rows, scene), row chunk fastest.
+struct DwGrid {
+  int n_rc, n_co, n_ci, k_vol, co_width;
+  static DwGrid make(int n_out, int rows, int c_out, int co_width, int n_ci, int k_vol) {
+    return DwGrid{(n_out + rows - 1) / rows, (c_out + co_width - 1) / co_width, n_ci, k_vol,
+                  co_width};
+  }
+  int64_t blocks(int b) const { return int64_t(n_rc) * n_co * n_ci * k_vol * b; }
+  __device__ void decode(int j, int& k, int& ci, int& co0, int& rc, int& b) const {
+    rc = j % n_rc;
+    j /= n_rc;
+    co0 = (j % n_co) * co_width;
+    j /= n_co;
+    ci = j % n_ci;
+    j /= n_ci;
+    k = j % k_vol;
+    b = j / k_vol;
+  }
+};
+
+// The valid pairs (table entry, row) of rows lo .. hi - 1 of table[b, k],
+// compacted in row order into shared memory at `mem` (bytes(rows) bytes
+// for chunks of up to rows <= MAX_ROWS rows): each warp loads its own
+// segment of the chunk (hi - lo split evenly over the warps in multiples
+// of 32 rows), all its loads in flight together, counts its pairs with
+// ballots, and after a prefix sum over the warps writes them from its
+// start, so that pair p sits at src[p], dst[p].
+template <int NT, int MAX_ROWS>
 struct PairList {
   static constexpr int NW = NT / 32;
-  static constexpr int SEG = ROWS / NW;
-  static constexpr int IT = SEG / 32;
-  int32_t src[ROWS];
-  int32_t dst[ROWS];
-  int start[NW + 1];
+  static constexpr int IT = MAX_ROWS / NT;  // loads a lane, at most
+  static_assert(MAX_ROWS % NT == 0, "whole loads a lane");
+  int32_t* src;
+  int32_t* dst;
+  int* start;
+
+  __host__ __device__ static constexpr int bytes(int rows) { return rows * 8 + (NW + 1) * 4; }
+
+  __device__ PairList(unsigned char* mem, int rows)
+      : src(reinterpret_cast<int32_t*>(mem)), dst(src + rows),
+        start(reinterpret_cast<int*>(dst + rows)) {}
 
   // Every thread calls; returns the number of pairs after a barrier.
   __device__ __forceinline__ int build(const int32_t* __restrict__ trow, int lo, int hi) {
     const int t = threadIdx.x, lane = t % 32, warp = t / 32;
-    const int s0 = lo + warp * SEG + lane;
+    const int it = (hi - lo + NT - 1) / NT;
+    const int s0 = lo + warp * 32 * it + lane;
     int32_t v[IT];
 #pragma unroll
-    for (int j = 0; j < IT; ++j) v[j] = s0 + 32 * j < hi ? __ldg(trow + s0 + 32 * j) : -1;
+    for (int j = 0; j < IT; ++j)
+      v[j] = j < it && s0 + 32 * j < hi ? __ldg(trow + s0 + 32 * j) : -1;
     int n = 0;
 #pragma unroll
-    for (int j = 0; j < IT; ++j) {
-      const unsigned bits = __ballot_sync(0xffffffffu, v[j] >= 0);
-      if (v[j] >= 0) {
-        const int p = warp * SEG + n + __popc(bits & ((1u << lane) - 1u));
-        src[p] = v[j];
-        dst[p] = s0 + 32 * j;
-      }
-      n += __popc(bits);
-    }
+    for (int j = 0; j < IT; ++j) n += __popc(__ballot_sync(0xffffffffu, v[j] >= 0));
     if (lane == 0) start[warp + 1] = n;
     __syncthreads();
     if (t == 0) {
@@ -555,20 +596,25 @@ struct PairList {
       for (int w = 0; w < NW; ++w) start[w + 1] += start[w];
     }
     __syncthreads();
-    return start[NW];
-  }
-
-  // Slot of pair p (0 .. total) in the segmented list.
-  __device__ __forceinline__ int slot(int p) const {
-    int w = 0;
+    int p = start[warp];
 #pragma unroll
-    for (int j = 1; j < NW; ++j) w += p >= start[j];
-    return w * SEG + (p - start[w]);
+    for (int j = 0; j < IT; ++j) {
+      const unsigned bits = __ballot_sync(0xffffffffu, v[j] >= 0);
+      if (v[j] >= 0) {
+        const int q = p + __popc(bits & ((1u << lane) - 1u));
+        src[q] = v[j];
+        dst[q] = s0 + 32 * j;
+      }
+      p += __popc(bits);
+    }
+    __syncthreads();
+    return start[NW];
   }
 };
 
 // dw[k][n0 .. n0 + W)[co0 .. co0 + 64 NWG) += sum over the chunk's pairs
-// of x[b, src][n0 ..]^T g[b, dst][co0 ..], on the tensor cores as its
+// of x[b, src][n0 ..]^T g[b, dst][co0 ..] (x [B, n_in, c_in], g [B, n_out,
+// c_out], table [B, k_vol, n_out]), on the tensor cores as its
 // transpose G^T X: 64 pairs a step through a ring of S stages laid out as
 // Ring<W, NWG>'s (warpgroup w's A slot holds the pairs' g rows at output
 // channels co0 + 64 w .., read MN-major as A = G^T; the shared B slots
@@ -581,18 +627,18 @@ __device__ __forceinline__ void dw_chunk_bf16(PairList<NWG * WG, DW_ROWS>& pl,
                                               const bf16* __restrict__ x,
                                               const bf16* __restrict__ g,
                                               const int32_t* __restrict__ table, float* dw, int b,
-                                              int k, int n0, int co0, int lo, int hi, int n,
-                                              int k_vol, int c_in, int c_out, bool vec,
+                                              int k, int n0, int co0, int lo, int hi, int n_in,
+                                              int n_out, int k_vol, int c_in, int c_out, bool vec,
                                               unsigned long long* dw_floats) {
   using R = Ring<W, NWG>;
   constexpr int CO = 64 * NWG;  // output channels of the block
   constexpr int LD = CO + 4;
   static_assert(W * LD * 4 <= S * R::STAGE, "the ring holds the staged sums");
   const int t = threadIdx.x, wg = t / WG, tw = t % WG;
-  const int n_pairs = pl.build(table + (int64_t(b) * k_vol + k) * n, lo, hi);
+  const int n_pairs = pl.build(table + (int64_t(b) * k_vol + k) * n_out, lo, hi);
   if (n_pairs == 0) return;
   const int n_steps = (n_pairs + DW_PAIRS - 1) / DW_PAIRS;
-  const int64_t row0 = int64_t(b) * n;
+  const int64_t x_row0 = int64_t(b) * n_in, g_row0 = int64_t(b) * n_out;
   const bool active = co0 + 64 * wg < c_out;  // the warpgroup has output channels
   auto issue = [&](int s) {
     if (s < n_steps) {
@@ -603,7 +649,7 @@ __device__ __forceinline__ void dw_chunk_bf16(PairList<NWG * WG, DW_ROWS>& pl,
         if (co0 + 64 * w >= c_out) continue;  // that warpgroup has no channels
         const bool in = pp < n_pairs;
         copy_chunk(st + R::a_off(w) + R::TA::chunk(p, c),
-                   g + (row0 + (in ? pl.dst[pl.slot(pp)] : 0)) * c_out + ch, in && ch < c_out,
+                   g + (g_row0 + (in ? pl.dst[pp] : 0)) * c_out + ch, in && ch < c_out,
                    c_out - ch, vec, g);
       }
       constexpr int NCH = W / 8;
@@ -613,7 +659,7 @@ __device__ __forceinline__ void dw_chunk_bf16(PairList<NWG * WG, DW_ROWS>& pl,
         const int ch = n0 + 8 * c;
         const uint32_t off = c < 8 * R::NB ? R::BM_OFF + R::TBm::chunk(p, c)
                                            : R::BT_OFF + R::TBt::chunk(p, c - 8 * R::NB);
-        copy_chunk(st + off, x + (row0 + (in ? pl.src[pl.slot(pp)] : 0)) * c_in + ch,
+        copy_chunk(st + off, x + (x_row0 + (in ? pl.src[pp] : 0)) * c_in + ch,
                    in && ch < c_in, c_in - ch, vec, x);
       }
     }
@@ -690,31 +736,37 @@ struct F32DwSmem {
 };
 
 // As dw_chunk_bf16 in fp32 on the CUDA cores: 32 pairs a step staged in
-// shared memory, 4 x 4 of the 64 x 64 tile a thread.
+// shared memory (8 threads a pair, 8 channels each, so a thread reads its
+// pair's rows once a step), 4 x 4 of the 64 x 64 tile a thread.
 __device__ __forceinline__ void dw_chunk_f32(PairList<F_THREADS, F_DW_ROWS>& pl, F32DwSmem& sm,
                                              const float* __restrict__ x,
                                              const float* __restrict__ g,
                                              const int32_t* __restrict__ table, float* dw, int b,
-                                             int k, int ci0, int co0, int lo, int hi, int n,
-                                             int k_vol, int c_in, int c_out,
+                                             int k, int ci0, int co0, int lo, int hi, int n_in,
+                                             int n_out, int k_vol, int c_in, int c_out,
                                              unsigned long long* dw_floats) {
   const int t = threadIdx.x;
-  const int n_pairs = pl.build(table + (int64_t(b) * k_vol + k) * n, lo, hi);
+  const int n_pairs = pl.build(table + (int64_t(b) * k_vol + k) * n_out, lo, hi);
   if (n_pairs == 0) return;
   const int ty = t / 16, tx = t % 16;  // ci ty*4.., co tx*4..
-  const int64_t row0 = int64_t(b) * n;
+  static_assert(F_THREADS == 32 * 8, "8 loader threads for each of a step's 32 pairs");
+  const int lp = t / 8, lc = t % 8 * 8;  // loader: pair lp, channels lc ..
+  const int64_t x_row0 = int64_t(b) * n_in, g_row0 = int64_t(b) * n_out;
   float acc[4][4] = {};
   for (int p0 = 0; p0 < n_pairs; p0 += 32) {
-    for (int idx = t; idx < 32 * 64; idx += F_THREADS) {
-      const int p = idx / 64, c = idx % 64;
-      const bool in = p0 + p < n_pairs;
-      const int sl = in ? pl.slot(p0 + p) : 0;
-      sm.X[p][c] = in && ci0 + c < c_in ? x[(row0 + pl.src[sl]) * c_in + ci0 + c] : 0.f;
-      sm.G[p][c] = in && co0 + c < c_out ? g[(row0 + pl.dst[sl]) * c_out + co0 + c] : 0.f;
+    const bool in = p0 + lp < n_pairs;
+    const float* xr = x + (x_row0 + (in ? pl.src[p0 + lp] : 0)) * c_in + ci0;
+    const float* gr = g + (g_row0 + (in ? pl.dst[p0 + lp] : 0)) * c_out + co0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = lc + j;
+      sm.X[lp][c] = in && ci0 + c < c_in ? xr[c] : 0.f;
+      sm.G[lp][c] = in && co0 + c < c_out ? gr[c] : 0.f;
     }
     __syncthreads();
+    const int m = n_pairs - p0 < 32 ? n_pairs - p0 : 32;  // the step's pairs
 #pragma unroll 4
-    for (int p = 0; p < 32; ++p) {
+    for (int p = 0; p < m; ++p) {
       float av[4], bv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) av[i] = sm.X[p][ty * 4 + i];
@@ -832,6 +884,56 @@ inline int chunk_width(int c_out, int rows, int b, int* n_chunks) {
   const int per = (c_out + nc - 1) / nc;
   *n_chunks = nc;
   return (per + 31) / 32 * 32;
+}
+
+// ---- the plan of a launch of dw blocks alone (K3) ---------------------------
+
+constexpr int MIN_DW_ROWS = 256;  // the shortest row chunk
+
+// Width of a dw block's input-channel chunk: the c_in input channels split
+// into chunks of at most 256 (a warpgroup's accumulators), each rounded up
+// to a multiple of 32. The row chunks, not the channels, fill the card.
+inline int dw_width(int c_in, int* n_chunks) {
+  const int nc = (c_in + 255) / 256;
+  *n_chunks = nc;
+  return ((c_in + nc - 1) / nc + 31) / 32 * 32;
+}
+
+// The grid and chunk length of a launch of dw blocks alone: from `rows`
+// (at most MIN_DW_ROWS << 6) down to MIN_DW_ROWS, halved while the grid
+// holds fewer blocks than the card keeps resident at once (`full` false),
+// or while a chunk half as long (a pair list half the size) lets more
+// blocks share an SM. Long chunks keep the flushes few on big maps, short
+// ones fill the card on small maps. KERNEL's blocks an SM at each length
+// are asked once (the occupancy call costs host time); smem(rows) is its
+// dynamic shared memory, whose limit must be raised first. K4 keeps fixed
+// chunks (DW_ROWS, F_DW_ROWS): its dw blocks share one grid and one
+// shared-memory size with its dx tiles, so their length moves neither the
+// blocks an SM nor the grid's fill.
+struct DwPlan {
+  DwGrid grid;
+  int rows;
+  bool full;
+};
+
+template <auto KERNEL, typename Smem>
+DwPlan plan_dw(int b, int n_out, int rows, int c_out, int co_width, int n_ci, int k_vol,
+               int threads, Smem smem) {
+  static int per_sm[8] = {};  // by halvings from `rows`
+  auto resident = [&](int i, int r) {
+    if (per_sm[i] == 0) {
+      int n = 0;
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, KERNEL, threads, smem(r));
+      per_sm[i] = n > 0 ? n : 1;
+    }
+    return per_sm[i];
+  };
+  for (int i = 0;; ++i, rows /= 2) {
+    const DwGrid dg = DwGrid::make(n_out, rows, c_out, co_width, n_ci, k_vol);
+    const bool full = dg.blocks(b) >= int64_t(num_sms()) * resident(i, rows);
+    if (rows <= MIN_DW_ROWS || (full && resident(i, rows) >= resident(i + 1, rows / 2)))
+      return DwPlan{dg, rows, full};
+  }
 }
 
 }  // namespace wct::igemm

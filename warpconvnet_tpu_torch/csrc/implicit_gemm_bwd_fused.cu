@@ -58,22 +58,6 @@ namespace {
 using namespace wct::igemm;
 
 
-// The dw blocks: (k, input-channel chunk, co_width output channels, row
-// chunk, scene), row chunk fastest.
-struct DwGrid {
-  int n_rc, n_co, n_ci, k_vol, co_width;
-  __device__ void decode(int j, int& k, int& ci, int& co0, int& rc, int& b) const {
-    rc = j % n_rc;
-    j /= n_rc;
-    co0 = (j % n_co) * co_width;
-    j /= n_co;
-    ci = j % n_ci;
-    j /= n_ci;
-    k = j % k_vol;
-    b = j / k_vol;
-  }
-};
-
 __global__ void __launch_bounds__(F_THREADS)
 igemm_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ w, const int32_t* __restrict__ table,
@@ -86,7 +70,7 @@ igemm_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g,
       F32Smem sm;
     } dx;
     struct {
-      PairList<F_THREADS, F_DW_ROWS> pl;
+      int32_t pairs[PairList<F_THREADS, F_DW_ROWS>::bytes(F_DW_ROWS) / 4];
       F32DwSmem sm;
     } dw;
   } u;
@@ -99,7 +83,8 @@ igemm_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g,
     int k, ci, co0, rc, b;
     dg.decode(bid - n_dx_blocks, k, ci, co0, rc, b);
     const int lo = rc * F_DW_ROWS, hi = lo + F_DW_ROWS < n ? lo + F_DW_ROWS : n;
-    dw_chunk_f32(u.dw.pl, u.dw.sm, x, g, table, dw, b, k, ci * 64, co0, lo, hi, n, k_vol, c_in,
+    PairList<F_THREADS, F_DW_ROWS> pl(reinterpret_cast<unsigned char*>(u.dw.pairs), F_DW_ROWS);
+    dw_chunk_f32(pl, u.dw.sm, x, g, table, dw, b, k, ci * 64, co0, lo, hi, n, n, k_vol, c_in,
                  c_out, counts + 1);
   }
 }
@@ -108,8 +93,10 @@ igemm_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g,
 // list (dw); ring stages: three for one warpgroup (two blocks an SM up to
 // 128 channels beside the 33 KB pair list), else as many as fit.
 template <int NWG>
-constexpr int kScratch = sizeof(Slab<NWG * BM>) > sizeof(PairList<NWG * WG, DW_ROWS>)
-                             ? sizeof(Slab<NWG * BM>) : sizeof(PairList<NWG * WG, DW_ROWS>);
+constexpr int kList = PairList<NWG * WG, DW_ROWS>::bytes(DW_ROWS);
+template <int NWG>
+constexpr int kScratch = int(sizeof(Slab<NWG * BM>)) > kList<NWG> ? int(sizeof(Slab<NWG * BM>))
+                                                                  : kList<NWG>;
 template <int W, int NWG>
 constexpr int kStages = Ring<W, NWG>::stages(3, kScratch<NWG>);
 
@@ -135,9 +122,9 @@ igemm_bwd_fused_bf16(const bf16* __restrict__ x, const bf16* __restrict__ g,
     int k, ci, co0, rc, b;
     dg.decode(bid - n_dx_blocks, k, ci, co0, rc, b);
     const int lo = rc * DW_ROWS, hi = lo + DW_ROWS < n ? lo + DW_ROWS : n;
-    dw_chunk_bf16<W, NWG, kStages<W, NWG>>(
-        *reinterpret_cast<PairList<NWG * WG, DW_ROWS>*>(scratch), ring, x, g, table, dw, b, k,
-        ci * W, co0, lo, hi, n, k_vol, c_in, c_out, vec, counts + 1);
+    PairList<NWG * WG, DW_ROWS> pl(scratch, DW_ROWS);
+    dw_chunk_bf16<W, NWG, kStages<W, NWG>>(pl, ring, x, g, table, dw, b, k, ci * W, co0, lo, hi,
+                                           n, n, k_vol, c_in, c_out, vec, counts + 1);
   }
 }
 
@@ -151,9 +138,8 @@ cudaError_t launch_bf16(const bf16* x, const bf16* g, const unsigned char* wimg,
   if (err != cudaSuccess) return err;
   const int n_tiles = (n + NWG * BM - 1) / (NWG * BM);  // dx blocks a (chunk, scene)
   const int n_dx = n_tiles * n_dx_chunks * b;
-  const DwGrid dg{(n + DW_ROWS - 1) / DW_ROWS, (c_out + 64 * NWG - 1) / (64 * NWG), n_dx_chunks,
-                  k_vol, 64 * NWG};
-  const int64_t blocks = n_dx + int64_t(dg.n_rc) * dg.n_co * dg.n_ci * k_vol * b;
+  const DwGrid dg = DwGrid::make(n, DW_ROWS, c_out, 64 * NWG, n_dx_chunks, k_vol);
+  const int64_t blocks = n_dx + dg.blocks(b);
   if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
   igemm_bwd_fused_bf16<W, NWG><<<unsigned(blocks), NWG * WG, bytes, stream>>>(
       x, g, wimg, table, order, dx, dw, n, k_vol, c_in, c_out, n_tiles, n_dx_chunks, n_dx, dg, vec,
@@ -192,9 +178,8 @@ extern "C" int wct_igemm_bwd_fused(const void* x, const void* g, const void* w,
   if (dtype == 0) {
     const int n_tiles = (n + BM - 1) / BM, n_dx_chunks = (c_in + 63) / 64;
     const int n_dx = n_tiles * n_dx_chunks * b;
-    const DwGrid dg{(n + F_DW_ROWS - 1) / F_DW_ROWS, (c_out + 63) / 64, (c_in + 63) / 64, k_vol,
-                    64};
-    const int64_t blocks = n_dx + int64_t(dg.n_rc) * dg.n_co * dg.n_ci * k_vol * b;
+    const DwGrid dg = DwGrid::make(n, F_DW_ROWS, c_out, 64, (c_in + 63) / 64, k_vol);
+    const int64_t blocks = n_dx + dg.blocks(b);
     if (blocks > 0x7fffffff) return int(cudaErrorInvalidValue);
     igemm_bwd_fused_f32<<<unsigned(blocks), F_THREADS, 0, stream>>>(
         static_cast<const float*>(x), static_cast<const float*>(g),

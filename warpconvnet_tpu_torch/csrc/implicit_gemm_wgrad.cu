@@ -1,256 +1,175 @@
-// Implicit-GEMM sparse-conv weight gradient:
+// Implicit-GEMM sparse-conv weight gradient (K3):
 //   dw[k] = sum_{b, o} x[b, table[b, k, o], :]^T g[b, o, :]      (-1 adds zero)
 // x [B, N_in, C_in] and g [B, N_out, C_out] in fp32 or bf16, fp32
-// accumulation, dw [K, C_in, C_out] fp32, summed over the batch.
+// accumulation, dw [K, C_in, C_out] fp32, summed over the batch. The
+// backward of every conv whose map is not a symmetric self-map (the
+// strided and transposed convs) takes it beside K2 as dgrad.
 //
 // Replaces: warpconvnet_tpu/kernels/implicit_gemm.py `_igemm_wgrad_kernel`
 // with its entry `implicit_gemm_wgrad` (:683-798, :1122-1209).
 //
-// The reduction runs over rows. The TPU kernel keeps all of dw resident in
-// VMEM across a sequential grid; here blocks run in parallel, so each block
-// owns one offset k, one 64 x 64 (C_in, C_out) tile of dw[k] and a chunk of
-// output rows, accumulates its tile in fp32 registers over the chunk, and
-// adds it into the zeroed dw with fp32 atomicAdd once at the end (option
-// "atomics" rather than per-block partials and a second reduce launch: the
-// flush is one 64 x 64 tile per block, a few thousand atomics per launch,
-// and needs no scratch; the sum order, and so the last bits, vary between
-// runs).
+// What bounds it on the card: bytes. Each valid pair gathers one x row and
+// one g row (C_in + C_out values) for 2 C_in C_out FLOPs, far below the
+// tensor cores' rate at the MinkUNet18 step's widths; the table is read
+// once. On a transposed map (the 2^3 map's reverse) each fine row has one
+// valid offset of eight, so per offset 7 rows in 8 carry no pair.
 //
-// What bounds it on the card: only the rows with a pair count. A block reads
-// its chunk's table entries for offset k 64 at a time and compacts the valid
-// (input row, output row) pairs into a shared list; each 32 pairs gather 32
-// x rows and 32 g rows into shared memory for one rank-32 update. So the
-// work done is the useful pairs (rounded up to 32 per chunk) x C_in x C_out
-// x 2 FLOPs, and the row gathers, not the arithmetic, bound it: on a 2^3
-// parity map, where each fine row has exactly one valid offset, a row tile
-// would otherwise be 7/8 zeros. bf16 runs the updates on the tensor cores
-// (WMMA 16x16x16, fp32 accumulation); fp32 on the CUDA cores.
+// Design: the weight-gradient blocks of igemm.cuh (`dw_chunk_bf16`,
+// `dw_chunk_f32`), which also run K4's dw, launched alone: one block per
+// (offset k, input-channel chunk of width W, 64 NWG output channels, chunk
+// of output rows, scene). A block compacts its chunk's valid pairs into
+// shared memory, gathers their g and x rows 64 pairs a step through a
+// cp.async ring into wgmma (bf16; fp32: 64 x 64 CUDA-core FMA tiles, the
+// FMA numerics of the plain sum), keeps its share of dw[k] in registers
+// over the whole chunk and adds it into the zeroed dw once, with float4
+// atomics. So x, g and the table are read once per block column, the
+// gathers touch only rows with a pair, and dw takes W x 64 NWG floats per
+// block that holds a pair. Those flushes bound the wide shapes: at 128-256
+// channels a 512-row chunk flushes more floats than it gathers, and the
+// float4 atomics then run at a rate the chunk's gathers cannot hide. So
+// the launch picks the chunk length from the occupancy of its blocks
+// (igemm.cuh `plan_dw`): from DW_ROWS (fp32 F_DW_ROWS) down to 256 rows,
+// halving while the grid holds less than one wave of resident blocks or
+// while a shorter chunk lets more blocks share an SM. bf16 takes two
+// warpgroups (128 output channels a block, so x rows and the table are
+// read half as often) above 64 output channels when their grid still
+// holds a wave. Timed on the MinkUNet18 step's eight shapes
+// (tools/time_k2_k4.py, H100 SXM at 700 W), one wave beat two and four
+// waves and the earlier kernel's rule of four blocks an SM, and the
+// residency term took the 96 -> 96 transposed conv from 4096-row chunks
+// (one block an SM) to 2048 (two), 0.054 to 0.046 ms. The atomics add in
+// a varying order, so dw's last bits vary between runs.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
-#include "tiles.cuh"
+#include "igemm.cuh"
 
 namespace {
 
-using wct::bf16;
-using wct::copy16;
+using namespace wct::igemm;
 
-constexpr int TM = 64;        // table entries read per round, and the dw tile edge
-constexpr int PAIRS = 32;     // pairs per rank-PAIRS update
-constexpr int LIST = TM + PAIRS;  // list capacity: < PAIRS left + TM appended
-
-// Walk rows [lo, hi) of table[b, k, :], compact the valid pairs into
-// (src, dst) and call step(base, m) on each full group of PAIRS pairs and on
-// the last partial group. Every thread of the block must call it. Returns
-// true if any pair was seen.
-template <typename Step>
-__device__ __forceinline__ bool for_each_pair_group(const int32_t* __restrict__ trow, int lo,
-                                                    int hi, int32_t* src, int32_t* dst,
-                                                    int* count, Step step) {
-  const int t = threadIdx.x;
-  bool any = false;
-  if (t == 0) *count = 0;
-  __syncthreads();
-  for (int o0 = lo; o0 < hi; o0 += TM) {
-    if (t < TM) {
-      const int o = o0 + t;
-      const int32_t r = o < hi ? trow[o] : -1;
-      if (r >= 0) {
-        const int p = atomicAdd(count, 1);
-        src[p] = r;
-        dst[p] = o;
-      }
-    }
-    __syncthreads();
-    int n = *count;
-    any |= n > 0;
-    for (; n >= PAIRS; n -= PAIRS) step(n - PAIRS, PAIRS);
-    __syncthreads();
-    if (t == 0) *count = n;
-    __syncthreads();
-  }
-  const int n = *count;
-  if (n > 0) step(0, n);
-  return any;
-}
-
-// ---- fp32: CUDA cores, 256 threads, 4 x 4 of the 64 x 64 dw tile each -------
-
-constexpr int F_THREADS = 256;
+constexpr int STAGES = 3;  // ring stages of a bf16 block: a block runs few steps
 
 __global__ void __launch_bounds__(F_THREADS)
 igemm_wgrad_f32(const float* __restrict__ x, const float* __restrict__ g,
-                const int32_t* __restrict__ table, float* __restrict__ dw,
-                int n_in, int n_out, int k_vol, int c_in, int c_out, int chunk,
-                int ci_tiles, int co_tiles) {
-  __shared__ int32_t src[LIST], dst[LIST];
-  __shared__ int count;
-  __shared__ float Xs[PAIRS][TM];      // gathered x rows, [pair][c_in]
-  __shared__ float Gs[PAIRS][TM + 4];  // gathered g rows, [pair][c_out]
-
-  const int t = threadIdx.x;
-  const int b = blockIdx.z;
-  const int k = blockIdx.y / (ci_tiles * co_tiles);
-  const int ci0 = (blockIdx.y / co_tiles % ci_tiles) * TM;
-  const int co0 = (blockIdx.y % co_tiles) * TM;
-  const int lo = blockIdx.x * chunk;
-  const int hi = min(lo + chunk, n_out);
-  const int ty = t / 16, tx = t % 16;
-  const int l_row = t / 8, l_col = (t % 8) * 8;  // loader: 8 channels of one pair
-  const float* xb = x + int64_t(b) * n_in * c_in;
-  const float* gb = g + int64_t(b) * n_out * c_out;
-  float acc[4][4] = {};
-
-  auto step = [&](int base, int m) {
-    const bool ok = l_row < m;
-    const float* xr = ok ? xb + int64_t(src[base + l_row]) * c_in : nullptr;
-    const float* gr = ok ? gb + int64_t(dst[base + l_row]) * c_out : nullptr;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int ci = ci0 + l_col + j, co = co0 + l_col + j;
-      Xs[l_row][l_col + j] = (ok && ci < c_in) ? xr[ci] : 0.f;
-      Gs[l_row][l_col + j] = (ok && co < c_out) ? gr[co] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int p = 0; p < PAIRS; ++p) {
-      float a[4], bv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Xs[p][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bv[j] = Gs[p][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  };
-  const int32_t* trow = table + (int64_t(b) * k_vol + k) * n_out;
-  if (!for_each_pair_group(trow, lo, hi, src, dst, &count, step)) return;
-
-  float* dk = dw + int64_t(k) * c_in * c_out;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ci = ci0 + ty * 4 + i;
-    if (ci >= c_in) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = co0 + tx * 4 + j;
-      if (co < c_out) atomicAdd(dk + int64_t(ci) * c_out + co, acc[i][j]);
-    }
-  }
+                const int32_t* __restrict__ table, float* __restrict__ dw, int n_in, int n_out,
+                int k_vol, int c_in, int c_out, int rows, DwGrid dg,
+                unsigned long long* dw_floats) {
+  using PL = PairList<F_THREADS, F_DW_ROWS>;
+  __shared__ int32_t pairs[PL::bytes(F_DW_ROWS) / 4];
+  __shared__ F32DwSmem sm;
+  PL pl(reinterpret_cast<unsigned char*>(pairs), rows);
+  int k, ci, co0, rc, b;
+  dg.decode(blockIdx.x, k, ci, co0, rc, b);
+  const int lo = rc * rows, hi = lo + rows < n_out ? lo + rows : n_out;
+  dw_chunk_f32(pl, sm, x, g, table, dw, b, k, ci * 64, co0, lo, hi, n_in, n_out, k_vol, c_in,
+               c_out, dw_floats);
 }
 
-// ---- bf16: tensor cores, 4 warps of 32 x 32 of the dw tile -------------------
+// Dynamic shared memory: the ring (1024-aligned), then the pair list of a
+// chunk of `rows` rows.
+template <int W, int NWG>
+constexpr int smem_bytes(int rows) {
+  return 1024 + STAGES * Ring<W, NWG>::STAGE + PairList<NWG * WG, DW_ROWS>::bytes(rows);
+}
 
-constexpr int H_THREADS = 128;
-constexpr int S_LD = TM + 8;  // bf16 row stride of the gathered tiles
-constexpr int C_LD = TM + 4;  // fp32 epilogue stride
-
-template <bool VEC>
-__global__ void __launch_bounds__(H_THREADS)
+template <int W, int NWG>
+__global__ void __launch_bounds__(NWG * WG, 1)
 igemm_wgrad_bf16(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                 const int32_t* __restrict__ table, float* __restrict__ dw,
-                 int n_in, int n_out, int k_vol, int c_in, int c_out, int chunk,
-                 int ci_tiles, int co_tiles) {
-  namespace wmma = nvcuda::wmma;
-  __shared__ int32_t src[LIST], dst[LIST];
-  __shared__ int count;
-  __shared__ __align__(32) bf16 Xs[PAIRS][S_LD];  // [pair][c_in]
-  __shared__ __align__(32) bf16 Gs[PAIRS][S_LD];  // [pair][c_out]
-  __shared__ __align__(32) float Cs[TM][C_LD];
+                 const int32_t* __restrict__ table, float* __restrict__ dw, int n_in, int n_out,
+                 int k_vol, int c_in, int c_out, int rows, DwGrid dg, bool vec,
+                 unsigned long long* dw_floats) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((1024u - smem_addr(smem_raw) % 1024u) % 1024u);
+  PairList<NWG * WG, DW_ROWS> pl(ring + STAGES * Ring<W, NWG>::STAGE, rows);
+  int k, ci, co0, rc, b;
+  dg.decode(blockIdx.x, k, ci, co0, rc, b);
+  const int lo = rc * rows, hi = lo + rows < n_out ? lo + rows : n_out;
+  dw_chunk_bf16<W, NWG, STAGES>(pl, ring, x, g, table, dw, b, k, ci * W, co0, lo, hi, n_in, n_out,
+                                k_vol, c_in, c_out, vec, dw_floats);
+}
 
-  const int t = threadIdx.x;
-  const int b = blockIdx.z;
-  const int k = blockIdx.y / (ci_tiles * co_tiles);
-  const int ci0 = (blockIdx.y / co_tiles % ci_tiles) * TM;
-  const int co0 = (blockIdx.y % co_tiles) * TM;
-  const int lo = blockIdx.x * chunk;
-  const int hi = min(lo + chunk, n_out);
-  const int warp = t / 32;
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;  // (c_in, c_out) quadrant
-  const int l_row = t / 4, l_col = (t % 4) * 16;         // loader: 16 channels of one pair
-  const bf16* xb = x + int64_t(b) * n_in * c_in;
-  const bf16* gb = g + int64_t(b) * n_out * c_out;
+// Writes the plan (its blocks, the rows of a chunk) before the launch.
+cudaError_t launch_f32(const float* x, const float* g, const int32_t* table, float* dw, int b,
+                       int n_in, int n_out, int k_vol, int c_in, int c_out, int* plan,
+                       unsigned long long* dw_floats, cudaStream_t stream) {
+  const DwPlan p = plan_dw<igemm_wgrad_f32>(b, n_out, F_DW_ROWS, c_out, 64, (c_in + 63) / 64,
+                                            k_vol, F_THREADS, [](int) { return 0; });
+  if (p.grid.blocks(b) > 0x7fffffff) return cudaErrorInvalidValue;
+  plan[0] = int(p.grid.blocks(b));
+  plan[1] = p.rows;
+  igemm_wgrad_f32<<<unsigned(plan[0]), F_THREADS, 0, stream>>>(
+      x, g, table, dw, n_in, n_out, k_vol, c_in, c_out, p.rows, p.grid, dw_floats);
+  return cudaGetLastError();
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+template <int W, int NWG>
+cudaError_t launch_bf16(const bf16* x, const bf16* g, const int32_t* table, float* dw, int b,
+                        int n_in, int n_out, int k_vol, int c_in, int c_out, bool vec,
+                        const DwPlan& p, int* plan, unsigned long long* dw_floats,
+                        cudaStream_t stream) {
+  if (p.grid.blocks(b) > 0x7fffffff) return cudaErrorInvalidValue;
+  plan[0] = int(p.grid.blocks(b));
+  plan[1] = p.rows;
+  igemm_wgrad_bf16<W, NWG><<<unsigned(plan[0]), NWG * WG, smem_bytes<W, NWG>(p.rows), stream>>>(
+      x, g, table, dw, n_in, n_out, k_vol, c_in, c_out, p.rows, p.grid, vec, dw_floats);
+  return cudaGetLastError();
+}
 
-  auto step = [&](int base, int m) {
-    const bool ok = l_row < m;
-    const int32_t s = ok ? src[base + l_row] : 0;
-    const int32_t d = ok ? dst[base + l_row] : 0;
-    copy16<VEC>(&Xs[l_row][l_col], xb + int64_t(s) * c_in + ci0 + l_col,
-                ok ? c_in - (ci0 + l_col) : 0);
-    copy16<VEC>(&Gs[l_row][l_col], gb + int64_t(d) * c_out + co0 + l_col,
-                ok ? c_out - (co0 + l_col) : 0);
-    __syncthreads();
-#pragma unroll
-    for (int p = 0; p < PAIRS; p += 16) {
-      // A = Xs^T (c_in x pairs), read column-major from the [pair][c_in] tile.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], &Xs[p][wm + i * 16], S_LD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(fb[j], &Gs[p][wn + j * 16], S_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
-  };
-  const int32_t* trow = table + (int64_t(b) * k_vol + k) * n_out;
-  if (!for_each_pair_group(trow, lo, hi, src, dst, &count, step)) return;
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(&Cs[wm + i * 16][wn + j * 16], acc[i][j], C_LD,
-                              wmma::mem_row_major);
-  __syncthreads();
-  wct::atomic_add_tile<TM, TM, H_THREADS>(dw + (int64_t(k) * c_in + ci0) * c_out + co0, c_out,
-                                          &Cs[0][0], C_LD, c_in - ci0, c_out - co0,
-                                          c_out % 4 == 0);
+// Two warpgroups (128 output channels a block, so that x rows and the
+// table are read half as often) above 64 output channels when their grid
+// holds a wave of resident blocks, else one.
+template <int W>
+cudaError_t launch_width(const bf16* x, const bf16* g, const int32_t* table, float* dw, int b,
+                         int n_in, int n_out, int k_vol, int c_in, int c_out, int n_ci, bool vec,
+                         int* plan, unsigned long long* dw_floats, cudaStream_t stream) {
+  cudaError_t err = allow_smem<igemm_wgrad_bf16<W, 1>>(smem_bytes<W, 1>(DW_ROWS));
+  if (err == cudaSuccess) err = allow_smem<igemm_wgrad_bf16<W, 2>>(smem_bytes<W, 2>(DW_ROWS));
+  if (err != cudaSuccess) return err;
+  if (c_out > 64) {
+    const DwPlan two = plan_dw<igemm_wgrad_bf16<W, 2>>(b, n_out, DW_ROWS, c_out, 128, n_ci, k_vol,
+                                                      2 * WG, smem_bytes<W, 2>);
+    if (two.full)
+      return launch_bf16<W, 2>(x, g, table, dw, b, n_in, n_out, k_vol, c_in, c_out, vec, two,
+                               plan, dw_floats, stream);
+  }
+  const DwPlan one = plan_dw<igemm_wgrad_bf16<W, 1>>(b, n_out, DW_ROWS, c_out, 64, n_ci, k_vol,
+                                                    WG, smem_bytes<W, 1>);
+  return launch_bf16<W, 1>(x, g, table, dw, b, n_in, n_out, k_vol, c_in, c_out, vec, one, plan,
+                           dw_floats, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (x and g share it). dw must be zeroed.
+// dw_floats: an int64 counter to which the blocks add the floats they add
+// into dw. plan (may be null): 2 ints written before the launch, its
+// blocks and the rows of a chunk.
 extern "C" int wct_igemm_wgrad(const void* x, const void* g, const int32_t* table, float* dw,
                                int b, int n_in, int n_out, int k_vol, int c_in, int c_out,
-                               int dtype, cudaStream_t stream) {
+                               int dtype, unsigned long long* dw_floats, int* plan,
+                               cudaStream_t stream) {
+  int unused[2];
+  if (plan == nullptr) plan = unused;
+  plan[0] = plan[1] = 0;
+  if (dtype != 0 && dtype != 1) return int(cudaErrorInvalidValue);
   if (b == 0 || n_out == 0 || k_vol == 0 || c_in == 0 || c_out == 0) return 0;
-  const int ci_tiles = (c_in + TM - 1) / TM, co_tiles = (c_out + TM - 1) / TM;
-  // Rows per block: long chunks keep the atomics few; halve them until the
-  // grid has about four blocks for each of the card's SMs.
-  const int64_t per_chunk = int64_t(b) * k_vol * ci_tiles * co_tiles;
-  int chunk = 4096;
-  while (chunk > 256 && per_chunk * ((n_out + chunk - 1) / chunk) < 4 * 132) chunk /= 2;
-  const dim3 grid((n_out + chunk - 1) / chunk, k_vol * ci_tiles * co_tiles, b);
-  if (dtype == 0) {
-    igemm_wgrad_f32<<<grid, F_THREADS, 0, stream>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g), table, dw, n_in, n_out,
-        k_vol, c_in, c_out, chunk, ci_tiles, co_tiles);
-  } else if (dtype == 1) {
-    const bf16* xh = static_cast<const bf16*>(x);
-    const bf16* gh = static_cast<const bf16*>(g);
-    if (wct::vec_ok(c_in, c_out, x, g))
-      igemm_wgrad_bf16<true><<<grid, H_THREADS, 0, stream>>>(
-          xh, gh, table, dw, n_in, n_out, k_vol, c_in, c_out, chunk, ci_tiles, co_tiles);
-    else
-      igemm_wgrad_bf16<false><<<grid, H_THREADS, 0, stream>>>(
-          xh, gh, table, dw, n_in, n_out, k_vol, c_in, c_out, chunk, ci_tiles, co_tiles);
-  } else {
-    return int(cudaErrorInvalidValue);
+  if (dtype == 0)
+    return int(launch_f32(static_cast<const float*>(x), static_cast<const float*>(g), table, dw,
+                          b, n_in, n_out, k_vol, c_in, c_out, plan, dw_floats, stream));
+  const bf16* xh = static_cast<const bf16*>(x);
+  const bf16* gh = static_cast<const bf16*>(g);
+  const bool vec = vec_ok(c_in, c_out, x, g, dw);
+  int n_ci = 0;
+  const int width = dw_width(c_in, &n_ci);
+#define WCT_W(WIDTH)                                                                           \
+  case WIDTH:                                                                                  \
+    return int(launch_width<WIDTH>(xh, gh, table, dw, b, n_in, n_out, k_vol, c_in, c_out,     \
+                                   n_ci, vec, plan, dw_floats, stream));
+  switch (width) {
+    WCT_W(32) WCT_W(64) WCT_W(96) WCT_W(128) WCT_W(160) WCT_W(192) WCT_W(224) WCT_W(256)
+    default: return int(cudaErrorInvalidValue);
   }
-  return int(cudaGetLastError());
+#undef WCT_W
 }

@@ -41,15 +41,16 @@ _SIGNATURES = {
     #                   c_out, w_trans, dtype, work, stream)
     "wct_igemm_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
     # int wct_igemm_wgrad(x, g, table, dw, b, n_in, n_out, k, c_in, c_out,
-    #                     dtype, stream)
-    "wct_igemm_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    #                     dtype, count, plan, stream)
+    "wct_igemm_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # int wct_igemm_bwd_fused(x, g, w, table, order, dx, dw, img, b, n, k,
     #                         c_in, c_out, dtype, counts, stream)
     "wct_igemm_bwd_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # int wct_depth_fwd(x, w, table, out, b, n_in, n_out, k, c, dtype, stream)
     "wct_depth_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # int wct_depth_wgrad(x, g, table, dw, b, n_in, n_out, k, c, dtype, stream)
-    "wct_depth_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # int wct_depth_wgrad(x, g, table, dw, b, n_in, n_out, k, c, dtype, count,
+    #                     plan, stream)
+    "wct_depth_wgrad": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
     # int wct_depth_bwd_fused(x, g, w, table, dx, dw, b, n, k, c, dtype, count,
     #                         plan, stream)
     "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],

@@ -6,7 +6,8 @@ table), the weight gradient K7 and the fused self-map backward K8. Ports of
   ``out[b, o, c] = sum_k x[b, table[b, k, o], c] * w[k, c]``; as dgrad
   (``nn/functional/sparse_conv_depth.py:131-140``) it runs on ``(g, w, rev)``.
 - K7 ``_depth_wgrad_kernel`` (:261, entry ``depthwise_fma_wgrad`` :607):
-  ``dw[k, c] = sum_{b, o} x[b, table[b, k, o], c] * g[b, o, c]``, fp32.
+  ``dw[k, c] = sum_{b, o} x[b, table[b, k, o], c] * g[b, o, c]``, fp32, on
+  any map: K8's dw blocks launched alone.
 - K8 ``_depth_bwd_fused_kernel`` (:367, entry ``depthwise_fma_bwd_fused``
   :692): dx and dw of a symmetric self-map in one launch.
 
@@ -23,10 +24,11 @@ offsets staged ahead in shared memory; each row sums its offsets in
 ascending order with fp32 ``fmaf``, so K6's output has the same bits on
 every call. K8 is one launch of two kinds of blocks: dx blocks run K6's
 walk on ``(g, w.flip(0), table)`` (its bits), and dw blocks, one for each
-offset and chunk of rows, sum their pairs on chip and add into dw once.
-The kernel counts those floats (:func:`work_counts`), which
-:func:`bwd_fused_dw_adds` models on the host from the table and the
-launch's plan (``depthwise_fma_bwd_fused.plan``).
+offset and chunk of rows, sum their pairs on chip and add into dw once;
+K7 is those dw blocks alone. The kernels count those floats
+(:func:`work_counts`), which :func:`bwd_fused_dw_adds` models on the host
+from the table and the launch's plan (``depthwise_fma_bwd_fused.plan``,
+``depthwise_fma_wgrad.plan``).
 """
 
 from __future__ import annotations
@@ -100,19 +102,20 @@ def depthwise_fma_bwd_fused_plain(
 
 
 def bwd_fused_dw_adds(table: torch.Tensor, c: int, chunk_rows: int) -> int:
-    """Floats that K8 adds into dw on ``table`` [B, K, N] at C channels, a
-    host model of the kernel's count (:func:`work_counts`
-    ``fused_dw_floats``): each (scene, offset, chunk of ``chunk_rows``
-    rows) with a pair sums its pairs on chip and adds its C channels of
-    dw[k] once. The launch's ``chunk_rows`` is in
-    ``depthwise_fma_bwd_fused.plan``."""
+    """Floats that K8's or K7's dw blocks add into dw on ``table`` [B, K,
+    N] at C channels, a host model of the kernels' counts
+    (:func:`work_counts` ``fused_dw_floats``, ``wgrad_dw_floats``): each
+    (scene, offset, chunk of ``chunk_rows`` rows) with a pair sums its
+    pairs on chip and adds its C channels of dw[k] once. The launch's
+    ``chunk_rows`` is in ``depthwise_fma_bwd_fused.plan`` or
+    ``depthwise_fma_wgrad.plan``."""
     b, k, n = table.shape
     chunks = -(-n // chunk_rows)
     met = torch.nn.functional.pad(table >= 0, (0, chunks * chunk_rows - n))
     return int(met.reshape(b, k, chunks, chunk_rows).any(-1).sum()) * c
 
 
-_COUNT_KEYS = ("fused_dw_floats",)
+_COUNT_KEYS = ("fused_dw_floats", "wgrad_dw_floats")
 _work_counts: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -125,8 +128,9 @@ def _counter(device: torch.device, key: str) -> int:
 
 def work_counts(device) -> Dict[str, int]:
     """What the kernels did on ``device`` since :func:`reset_work_counts`:
-    the floats K8's blocks added into dw (``fused_dw_floats``, as
-    :func:`bwd_fused_dw_adds` counts them). Synchronises."""
+    the floats K8's and K7's blocks added into dw (``fused_dw_floats``,
+    ``wgrad_dw_floats``, as :func:`bwd_fused_dw_adds` counts them).
+    Synchronises."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
@@ -229,7 +233,9 @@ def depthwise_fma_wgrad(
     table: torch.Tensor,
     accum_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """K7 on CUDA tensors, :func:`depthwise_fma_wgrad_plain` on CPU tensors."""
+    """K7 on CUDA tensors, :func:`depthwise_fma_wgrad_plain` on CPU tensors.
+    Each launch leaves its plan in ``.plan``: its dw blocks and the rows of
+    their chunks."""
     if x.device.type == "cpu":
         return depthwise_fma_wgrad_plain(x, g, table, accum_dtype)
     name = "depthwise_fma_wgrad"
@@ -242,12 +248,15 @@ def depthwise_fma_wgrad(
             f"table {tuple(table.shape)} disagree"
         )
     dw = torch.zeros((k_vol, c), dtype=torch.float32, device=x.device)
+    plan = (ctypes.c_int * 2)()
     rc = lib.wct_depth_wgrad(
         x.data_ptr(), g.data_ptr(), table.data_ptr(), dw.data_ptr(),
-        b, n_in, n_out, k_vol, c, _DTYPE_CODES[x.dtype], stream,
+        b, n_in, n_out, k_vol, c, _DTYPE_CODES[x.dtype],
+        _counter(x.device, "wgrad_dw_floats"), ctypes.addressof(plan), stream,
     )
     _build.check(lib, rc, name)
     depthwise_fma_wgrad.launches += 1
+    depthwise_fma_wgrad.plan = dict(dw_blocks=plan[0], chunk_rows=plan[1])
     return dw
 
 
@@ -290,5 +299,6 @@ def depthwise_fma_bwd_fused(
 depthwise_fma_fwd.launches = 0
 depthwise_fma_dgrad.launches = 0
 depthwise_fma_wgrad.launches = 0
+depthwise_fma_wgrad.plan = None
 depthwise_fma_bwd_fused.launches = 0
 depthwise_fma_bwd_fused.plan = None

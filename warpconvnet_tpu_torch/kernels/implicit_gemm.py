@@ -6,7 +6,9 @@ K4. Ports of ``warpconvnet_tpu/kernels/implicit_gemm.py``:
   ``out[b, o] = sum_k x[b, table[b, k, o]] @ w[k]``; as dgrad
   (``nn/functional/sparse_conv.py:301-311``) it runs on ``(g, w^T, rev)``.
 - K3 ``_igemm_wgrad_kernel`` (:683, entry ``implicit_gemm_wgrad`` :1122):
-  ``dw[k] = sum_{b, o} x[b, table[b, k, o]]^T @ g[b, o]``, fp32.
+  ``dw[k] = sum_{b, o} x[b, table[b, k, o]]^T @ g[b, o]``, fp32, on any
+  map: K4's dw blocks launched alone, over chunks of rows whose length the
+  launch picks (``implicit_gemm_wgrad.plan``).
 - K4 ``_igemm_bwd_fused_kernel`` (:801, entry ``implicit_gemm_bwd_fused``
   :1212): dx and dw of a symmetric self-map in one pass.
 
@@ -24,12 +26,13 @@ which rows share a tile, never a result: K2's output has the same bits
 under any order. The plain versions take no order.
 
 The kernels count what they did on the card (:func:`work_counts`): K2's
-and K4's tile work and the floats K4 adds into dw with atomics, which
-:func:`tile_work` and :func:`bwd_fused_dw_atomics` model on the host.
+and K4's tile work and the floats K3 and K4 add into dw with atomics,
+which :func:`tile_work` and :func:`bwd_fused_dw_atomics` model on the host.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -39,7 +42,7 @@ from warpconvnet_tpu_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 TILE_ROWS = 64  # rows of a K2 / K4 tile (csrc/igemm.cuh BM)
-DW_ROWS = 4096  # rows of a bf16 K4 weight-gradient chunk (csrc/igemm.cuh DW_ROWS)
+DW_ROWS = 4096  # rows of a bf16 K4 weight-gradient chunk, K3's longest (csrc/igemm.cuh DW_ROWS)
 F_DW_ROWS = 2048  # rows of an fp32 one (csrc/igemm.cuh F_DW_ROWS)
 
 
@@ -148,18 +151,19 @@ def tile_work(
 def bwd_fused_dw_atomics(
     table: torch.Tensor, c_in: int, c_out: int, chunk_rows: int = DW_ROWS
 ) -> int:
-    """Floats that bf16 K4 adds into dw with atomics on ``table``, a host
-    model of the kernel's count (:func:`work_counts` ``fused_dw_floats``):
-    every (scene, offset, chunk of ``chunk_rows`` rows) with a pair flushes
-    its C_in x C_out share of dw[k] once (fp32: ``chunk_rows`` F_DW_ROWS).
-    With ``chunk_rows`` 256 it models the earlier design's flushes, one per
-    256-row chunk and offset."""
+    """Floats that K4's or K3's dw blocks add into dw with atomics on
+    ``table``, a host model of the kernels' counts (:func:`work_counts`
+    ``fused_dw_floats``, ``wgrad_dw_floats``): every (scene, offset, chunk
+    of ``chunk_rows`` rows) with a pair flushes its C_in x C_out share of
+    dw[k] once. K4's chunks are DW_ROWS rows (fp32: F_DW_ROWS); K3's are
+    in ``implicit_gemm_wgrad.plan`` after a launch."""
     b, k, n = table.shape
     valid = torch.nn.functional.pad(table >= 0, (0, (-n) % chunk_rows))
     return int(valid.reshape(b, k, -1, chunk_rows).any(-1).sum()) * c_in * c_out
 
 
-_COUNT_KEYS = ("fwd_tile_work", "dgrad_tile_work", "fused_tile_work", "fused_dw_floats")
+_COUNT_KEYS = ("fwd_tile_work", "dgrad_tile_work", "fused_tile_work", "fused_dw_floats",
+               "wgrad_dw_floats")
 _work_counts: Dict[torch.device, torch.Tensor] = {}
 
 
@@ -174,9 +178,9 @@ def work_counts(device) -> Dict[str, int]:
     """What the kernels did on ``device`` since :func:`reset_work_counts`:
     the tile work of K2 (``fwd_tile_work``), of K2 as dgrad and of K4's dx
     (64 rows for each (tile, offset) a tile computed, as :func:`tile_work`
-    counts it), and the floats K4's dw blocks added into dw
-    (``fused_dw_floats``, as :func:`bwd_fused_dw_atomics` counts them).
-    Synchronises."""
+    counts it), and the floats K4's and K3's dw blocks added into dw
+    (``fused_dw_floats``, ``wgrad_dw_floats``, as
+    :func:`bwd_fused_dw_atomics` counts them). Synchronises."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device(device.type, torch.cuda.current_device())
@@ -307,7 +311,9 @@ def implicit_gemm_wgrad(
     table: torch.Tensor,
     accum_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """K3 on CUDA tensors, :func:`implicit_gemm_wgrad_plain` on CPU tensors."""
+    """K3 on CUDA tensors, :func:`implicit_gemm_wgrad_plain` on CPU tensors.
+    Each launch leaves its plan in ``.plan``: its dw blocks and the rows of
+    their chunks."""
     if x.device.type == "cpu":
         return implicit_gemm_wgrad_plain(x, g, table, accum_dtype)
     name = "implicit_gemm_wgrad"
@@ -321,12 +327,15 @@ def implicit_gemm_wgrad(
         )
     c_out = g.shape[2]
     dw = torch.zeros((k_vol, c_in, c_out), dtype=torch.float32, device=x.device)
+    plan = (ctypes.c_int * 2)()
     rc = lib.wct_igemm_wgrad(
         x.data_ptr(), g.data_ptr(), table.data_ptr(), dw.data_ptr(),
-        b, n_in, n_out, k_vol, c_in, c_out, _DTYPE_CODES[x.dtype], stream,
+        b, n_in, n_out, k_vol, c_in, c_out, _DTYPE_CODES[x.dtype],
+        _counter(x.device, "wgrad_dw_floats"), ctypes.addressof(plan), stream,
     )
     _build.check(lib, rc, name)
     implicit_gemm_wgrad.launches += 1
+    implicit_gemm_wgrad.plan = dict(dw_blocks=plan[0], chunk_rows=plan[1])
     return dw
 
 
@@ -373,4 +382,5 @@ def implicit_gemm_bwd_fused(
 implicit_gemm_fwd.launches = 0
 implicit_gemm_dgrad.launches = 0
 implicit_gemm_wgrad.launches = 0
+implicit_gemm_wgrad.plan = None
 implicit_gemm_bwd_fused.launches = 0
