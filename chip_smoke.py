@@ -50,8 +50,8 @@ Phases (any failure exits non-zero):
      on the L0 -> L1 2^3 parity map and its reverse; K8 on the 7^3 and 3^3
      self-maps. Each against its plain version, timed; K8's dx also with
      the bits of K6 on (g, w flipped), and the floats K7's and K8's blocks
-     add into dw (their own counts, ``depthwise_fma.work_counts``) held
-     against the host model ``bwd_fused_dw_adds``.
+     add into dw (their own counts, ``tracing`` ``k7.dw_floats`` and
+     ``k8.dw_floats``) held against the host model ``bwd_fused_dw_adds``.
  10. convnext: SparseConvNeXtBlock(96, kernel 7) on the bench scene pair
      (bf16 features, fp32 parameters, seeded weights): fwd+bwd of
      sum(out^2) with 1 K1, 1 K6 and 1 K8 launch, an inference forward with
@@ -97,6 +97,12 @@ Prints one JSON line of per-kernel results (time, plain time, bound from
 the bytes and operations of this run's inputs, the time of a one-call
 PyTorch equivalent where one exists, launches on the main paths), then the
 ok line last.
+
+Launches are the ``tracing`` registry's host counters; the kernels' own
+counts are its device counters, which count only while recording, so the
+checks that read them record around their launches, and the main-path
+phases (from phase 6 on) run while recording, their spans on (about 8 us
+of host time each).
 """
 
 from __future__ import annotations
@@ -388,17 +394,40 @@ def plain_kernels():
         yield
 
 
+_launch_base = {}  # each wrapper's launches at the last reset_counts()
+
+
+def _launches(key):
+    from warpconvnet_tpu_torch import tracing
+
+    return tracing.counters().get(f"launches.{wrappers()[key].__name__}", 0)
+
+
 def reset_counts():
-    for fn in wrappers().values():
-        fn.launches = 0
+    _launch_base.update({key: _launches(key) for key in wrappers()})
 
 
 def counts():
-    return wrappers()["k1"].launches, wrappers()["fwd"].launches
+    got = all_counts(("k1", "fwd"))
+    return got["k1"], got["fwd"]
 
 
 def all_counts(keys=tuple(PER_STEP)):
-    return {key: wrappers()[key].launches for key in keys}
+    return {key: _launches(key) - _launch_base.get(key, 0) for key in keys}
+
+
+@contextmanager
+def device_counts(device):
+    """Record while the block runs; the dict it yields then holds what each
+    device counter of ``tracing`` gained on ``device`` (synchronises)."""
+    from warpconvnet_tpu_torch import tracing
+
+    before = tracing.counters(device)
+    gained = {}
+    with tracing.recording():
+        yield gained
+    after = tracing.counters(device)
+    gained.update({k: after[k] - before[k] for k in tracing.DEVICE_KEYS})
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -420,11 +449,11 @@ def probe_case(vox, offsets, label):
 
     keys = coord_keys(torch.where(vox.valid_mask()[..., None], vox.coords, PAD_COORD))
     args = (keys, vox.num_valid, vox.coords, vox.num_valid, offsets, (1, 1, 1))
-    sorted_search.reset_probe_tile_counts()
-    got = sorted_search.kernel_map_probe(*args)
+    with device_counts(vox.coords.device) as gained:
+        got = sorted_search.kernel_map_probe(*args)
     ref = sorted_search.kernel_map_probe_plain(*args)
     torch.cuda.synchronize()
-    tiles, wide = sorted_search.probe_tile_counts(vox.coords.device)
+    tiles, wide = gained["k1.tiles"], gained["k1.wide_tiles"]
     mismatches = int((got != ref).sum())
     err = int((got.long() - ref.long()).abs().max())
     del ref
@@ -632,9 +661,9 @@ def phase_bwd(vox, table3):
             rev, rev_order = bpt.rev.contiguous(), bpt.rev_order
             dx = ig.implicit_gemm_dgrad(g, w, rev, order=rev_order)
             ref_dx = ig.implicit_gemm_dgrad_plain(g, w, rev)
-            ig.reset_work_counts()
-            dw = ig.implicit_gemm_wgrad(x, g, bpt.table)
-            floats, plan = ig.work_counts(x.device)["wgrad_dw_floats"], ig.implicit_gemm_wgrad.plan
+            with device_counts(x.device) as gained:
+                dw = ig.implicit_gemm_wgrad(x, g, bpt.table)
+            floats, plan = gained["k3.dw_floats"], ig.implicit_gemm_wgrad.plan
             ref_dw = ig.implicit_gemm_wgrad_plain(x, g, bpt.table)
             torch.cuda.synchronize()
             model = ig.bwd_fused_dw_atomics(bpt.table, c_in, c_out, plan["chunk_rows"])
@@ -682,9 +711,9 @@ def phase_bwd(vox, table3):
         g = rand((B, n0, c_out), n0 ** -0.5).to(dtype)
         w = rand((27, c_in, c_out), (27 * c_in) ** -0.5).to(dtype)
         rev3 = table3.flip(1).contiguous()
-        ig.reset_work_counts()
-        dx, dw = ig.implicit_gemm_bwd_fused(x, g, w, table3, offsets3, order=order3)
-        atomics = ig.work_counts(x.device)["fused_dw_floats"]
+        with device_counts(x.device) as gained:
+            dx, dw = ig.implicit_gemm_bwd_fused(x, g, w, table3, offsets3, order=order3)
+        atomics = gained["k4.dw_floats"]
         ref_dx, ref_dw = ig.implicit_gemm_bwd_fused_plain(x, g, w, table3, offsets3)
         torch.cuda.synchronize()
         model = ig.bwd_fused_dw_atomics(
@@ -800,9 +829,9 @@ def phase_step_shapes(vox):
 
     def counted(kind, fn):
         """fn()'s result and the count its kernel adds under ``kind``."""
-        ig.reset_work_counts()
-        out = fn()
-        return out, ig.work_counts(vox.coords.device)[kind]
+        with device_counts(vox.coords.device) as gained:
+            out = fn()
+        return out, gained[kind]
 
     subs, downs = step_maps(vox)
     maps = [(f"L{i} 3^3", m.table, m.order, m.table.shape[2]) for i, m in enumerate(subs)]
@@ -817,7 +846,7 @@ def phase_step_shapes(vox):
         pairs = int((table >= 0).sum())
         work = {}
         for name, o in (("index", None), ("row", order)):
-            _, work[name] = counted("fwd_tile_work", lambda: ig.implicit_gemm_fwd(x, w, table,
+            _, work[name] = counted("k2.fwd_tile_work", lambda: ig.implicit_gemm_fwd(x, w, table,
                                                                                   order=o))
             model = ig.tile_work(table, o)[0]
             check(work[name] == model, f"{label}: K2 counted tile work {work[name]} in the "
@@ -850,9 +879,8 @@ def phase_step_shapes(vox):
             w = (torch.randn((k, c_in, c_out), generator=gen, device="cuda") / (k * c_in) ** 0.5)
             w = w.to(dt)
             args = (x, g, w, table, sub.offsets)
-            ig.reset_work_counts()
-            got_dx, got_dw = ig.implicit_gemm_bwd_fused(*args, order=order)
-            counts = ig.work_counts(x.device)
+            with device_counts(x.device) as counts:
+                got_dx, got_dw = ig.implicit_gemm_bwd_fused(*args, order=order)
             ref_dx, ref_dw = ig.implicit_gemm_bwd_fused_plain(*args)
             torch.cuda.synchronize()
             torch.testing.assert_close(got_dx.float(), ref_dx.float(), **K2_TOL[dt])
@@ -863,16 +891,16 @@ def phase_step_shapes(vox):
             plain_ms = cuda_ms(lambda: ig.implicit_gemm_bwd_fused_plain(*args), iters=3, warmup=1)
             b_ms, b_by = bound(nbytes(x, g, w, table, got_dx, got_dw), 2 * flops, dt)
             model = ig.bwd_fused_dw_atomics(table, c_in, c_out)
-            check(counts["fused_dw_floats"] == model,
-                  f"K4 {label}: {counts['fused_dw_floats']} dw floats added, the model {model}")
-            extra = dict(dw_rel_err=dw_err, tile_work=counts["fused_tile_work"],
-                         dw_atomic_floats=counts["fused_dw_floats"])
+            check(counts["k4.dw_floats"] == model,
+                  f"K4 {label}: {counts['k4.dw_floats']} dw floats added, the model {model}")
+            extra = dict(dw_rel_err=dw_err, tile_work=counts["k4.tile_work"],
+                         dw_atomic_floats=counts["k4.dw_floats"])
             del x, g, w, got_dx, got_dw, ref_dx, ref_dw
         elif kind == "wgrad":  # x [b, n_src, c_in] gathered, g [b, n_out, c_out]
             x = torch.randn((b, n_src, c_in), generator=gen, device="cuda").to(dt)
             g = (torch.randn((b, n_out, c_out), generator=gen, device="cuda") / 300).to(dt)
             fn = lambda: ig.implicit_gemm_wgrad(x, g, table)  # noqa: E731
-            got, floats = counted("wgrad_dw_floats", fn)
+            got, floats = counted("k3.dw_floats", fn)
             plan = ig.implicit_gemm_wgrad.plan
             ref = ig.implicit_gemm_wgrad_plain(x, g, table)
             torch.cuda.synchronize()
@@ -898,7 +926,7 @@ def phase_step_shapes(vox):
                 wd = w.transpose(1, 2).contiguous()
                 fn = lambda: ig.implicit_gemm_dgrad(x, wd, table, order=order)  # noqa: E731
                 plain = lambda: ig.implicit_gemm_dgrad_plain(x, wd, table)  # noqa: E731
-            got, work = counted(f"{kind}_tile_work", fn)
+            got, work = counted(f"k2.{kind}_tile_work", fn)
             ref = plain()
             torch.cuda.synchronize()
             torch.testing.assert_close(got.float(), ref.float(), **K2_TOL[dt])
@@ -1005,9 +1033,9 @@ def phase_depthwise(vox, table3):
         g = rand((B, n1, c), dtype)
         w = rand((8, c), torch.float32, 8 ** -0.5)
         dx = dw.depthwise_fma_dgrad(g, w, rev)
-        dw.reset_work_counts()
-        dwt = dw.depthwise_fma_wgrad(x, g, down.table)
-        adds, plan = dw.work_counts(x.device)["wgrad_dw_floats"], dw.depthwise_fma_wgrad.plan
+        with device_counts(x.device) as gained:
+            dwt = dw.depthwise_fma_wgrad(x, g, down.table)
+        adds, plan = gained["k7.dw_floats"], dw.depthwise_fma_wgrad.plan
         ref_dx = dw.depthwise_fma_dgrad_plain(g, w, rev)
         ref_dw = dw.depthwise_fma_wgrad_plain(x, g, down.table)
         torch.cuda.synchronize()
@@ -1052,9 +1080,9 @@ def phase_depthwise(vox, table3):
             x = rand((B, n0, c), dtype) * mask
             g = rand((B, n0, c), dtype) * mask
             w = rand((k, c), torch.float32, k ** -0.5)
-            dw.reset_work_counts()
-            dx, dwt = dw.depthwise_fma_bwd_fused(x, g, w, table, offsets)
-            adds = dw.work_counts(x.device)["fused_dw_floats"]
+            with device_counts(x.device) as gained:
+                dx, dwt = dw.depthwise_fma_bwd_fused(x, g, w, table, offsets)
+            adds = gained["k8.dw_floats"]
             plan = dw.depthwise_fma_bwd_fused.plan
             model = dw.bwd_fused_dw_adds(table, c, plan["chunk_rows"])
             ref_dx, ref_dw = dw.depthwise_fma_bwd_fused_plain(x, g, w, table, offsets)
@@ -1943,19 +1971,18 @@ def main() -> int:
     bwd["fused"]["step_shapes"] = step_shape_results["fused"]
     depth = phase_depthwise(vox, table)
     del table, vox
-    from warpconvnet_tpu_torch.kernels import sorted_search
-
-    sorted_search.reset_probe_tile_counts()
-    # The main paths, each driven with every count set to 0 just before it.
-    paths = {f"MinkUNet18 inference ({REQUESTS} requests)": phase_slice(device),
-             f"MinkUNet18 train ({TRAIN_STEPS} steps)": phase_train(device)}
-    paths.update(phase_convnext(device))
-    paths.update(phase_strided_grouped(device))
-    k9 = phase_k9(tokens)
-    k9_bwd = phase_k9_bwd(tokens)
-    paths[f"Volt-s inference ({REQUESTS} requests)"] = phase_volt(device)
-    paths[f"Volt-s train ({VOLT_TRAIN_STEPS} steps)"] = phase_volt_train(device)
-    tiles, wide = sorted_search.probe_tile_counts(device)
+    # The main paths, each driven with every launch count set to 0 just
+    # before it, while recording (K1 counts its tiles).
+    with device_counts(device) as gained:
+        paths = {f"MinkUNet18 inference ({REQUESTS} requests)": phase_slice(device),
+                 f"MinkUNet18 train ({TRAIN_STEPS} steps)": phase_train(device)}
+        paths.update(phase_convnext(device))
+        paths.update(phase_strided_grouped(device))
+        k9 = phase_k9(tokens)
+        k9_bwd = phase_k9_bwd(tokens)
+        paths[f"Volt-s inference ({REQUESTS} requests)"] = phase_volt(device)
+        paths[f"Volt-s train ({VOLT_TRAIN_STEPS} steps)"] = phase_volt_train(device)
+    tiles, wide = gained["k1.tiles"], gained["k1.wide_tiles"]
     log(f"K1 over the main-path phases: {wide} of {tiles} tiles walked in device memory")
     k1["main_paths_global_share"] = wide / tiles
     entries = dict(k1=k1, fwd=k2, **bwd, **depth, attn=k9, **k9_bwd)

@@ -15,6 +15,7 @@ import torch
 
 from warpconvnet_tpu.kernels import depthwise_fma as jdfma
 from warpconvnet_tpu.nn.functional import sparse_conv_depth as jdepth
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.kernels import depthwise_fma as dfma
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
@@ -117,15 +118,16 @@ def test_wrappers_take_the_plain_version_on_cpu():
     """On CPU tensors each wrapper is its plain version and counts no
     launch; bf16 features keep their dtype with an fp32 weight, dw is fp32."""
     x, g, w, bpt = _case("sub3")
-    before = [f.launches for f in (dfma.depthwise_fma_fwd, dfma.depthwise_fma_dgrad,
-                                   dfma.depthwise_fma_wgrad, dfma.depthwise_fma_bwd_fused)]
+    keys = [f"launches.{f.__name__}" for f in (dfma.depthwise_fma_fwd, dfma.depthwise_fma_dgrad,
+                                                dfma.depthwise_fma_wgrad,
+                                                dfma.depthwise_fma_bwd_fused)]
+    before = [tracing.counters().get(k, 0) for k in keys]
     xb, gb = x.to(torch.bfloat16), g.to(torch.bfloat16)
     out = dfma.depthwise_fma_fwd(xb, w, bpt.table)
     dx = dfma.depthwise_fma_dgrad(gb, w, bpt.rev)
     dw = dfma.depthwise_fma_wgrad(xb, gb, bpt.table)
     fdx, fdw = dfma.depthwise_fma_bwd_fused(xb, gb, w, bpt.table, bpt.offsets)
-    after = [f.launches for f in (dfma.depthwise_fma_fwd, dfma.depthwise_fma_dgrad,
-                                  dfma.depthwise_fma_wgrad, dfma.depthwise_fma_bwd_fused)]
+    after = [tracing.counters().get(k, 0) for k in keys]
     assert after == before
     assert out.dtype == dx.dtype == fdx.dtype == torch.bfloat16
     assert dw.dtype == fdw.dtype == torch.float32

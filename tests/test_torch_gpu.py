@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.kernels import depthwise_fma, implicit_gemm, sorted_search
 from warpconvnet_tpu_torch.kernels import segment_attention as k9
@@ -39,6 +40,12 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=1e-2
 # dw (fp32 out) sums products over all rows with fp32 atomics in a varying
 # order; bf16 inputs make exact fp32 products, so both dtypes share it.
 DW_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def launches(fn) -> int:
+    """Launches of the kernel wrapper ``fn`` counted since the registry's
+    last reset (``tracing`` host counter ``launches.<wrapper>``)."""
+    return tracing.counters().get(f"launches.{fn.__name__}", 0)
 
 
 @pytest.fixture
@@ -73,11 +80,11 @@ def test_k1_matches_plain(cuda, ks, stride):
     vox = _voxels(ks, cuda, lo=-12).lex_sort()
     out = vox if stride == 1 else _voxels(7, cuda, n=600, grid=12, lo=-6).lex_sort()
     args = _probe_args(vox, out, kernel_offsets(ks), (stride,) * 3)
-    before = sorted_search.kernel_map_probe.launches
+    before = launches(sorted_search.kernel_map_probe)
     got = sorted_search.kernel_map_probe(*args)
     ref = sorted_search.kernel_map_probe_plain(*args)
     torch.cuda.synchronize()
-    assert sorted_search.kernel_map_probe.launches == before + 1
+    assert launches(sorted_search.kernel_map_probe) == before + 1
     assert torch.equal(got, ref)
     assert int((got >= 0).sum()) > 0
 
@@ -116,15 +123,17 @@ def _scene_voxels(scenes, n, device):
 def _probe_once(args):
     """K1 against its plain version on ``args``: asserts one launch and equal
     tables; returns (tiles, tiles walked in device memory) of that launch."""
-    sorted_search.reset_probe_tile_counts()
-    before = sorted_search.kernel_map_probe.launches
-    got = sorted_search.kernel_map_probe(*args)
+    tracing.reset_counters()
+    before = launches(sorted_search.kernel_map_probe)
+    with tracing.recording():
+        got = sorted_search.kernel_map_probe(*args)
     ref = sorted_search.kernel_map_probe_plain(*args)
     torch.cuda.synchronize()
-    assert sorted_search.kernel_map_probe.launches == before + 1
+    assert launches(sorted_search.kernel_map_probe) == before + 1
     assert torch.equal(got, ref)
     assert int((got >= 0).sum()) > 0
-    return sorted_search.probe_tile_counts(args[0].device)
+    counts = tracing.counters(args[0].device)
+    return counts["k1.tiles"], counts["k1.wide_tiles"]
 
 
 def _bench_scene(cuda):
@@ -194,11 +203,11 @@ def test_k2_matches_plain(cuda, dtype, c_in, c_out):
         k = table.shape[1]
         w = torch.randn((k, c_in, c_out), generator=gen, device=cuda) / (k * c_in) ** 0.5
         x, w = x.to(dtype).contiguous(), w.to(dtype)
-        before = implicit_gemm.implicit_gemm_fwd.launches
+        before = launches(implicit_gemm.implicit_gemm_fwd)
         got = implicit_gemm.implicit_gemm_fwd(x, w, table)
         ref = implicit_gemm.implicit_gemm_fwd_plain(x, w, table)
         torch.cuda.synchronize()
-        assert implicit_gemm.implicit_gemm_fwd.launches == before + 1
+        assert launches(implicit_gemm.implicit_gemm_fwd) == before + 1
         assert got.dtype == dtype and got.shape == (2, table.shape[2], c_out)
         torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
 
@@ -227,10 +236,10 @@ def test_small_unet_kernel_path_matches_cpu_plain_path(cuda):
     vox = _voxels(3, "cpu", n=1024, c=3)
     with torch.inference_mode():
         ref = model(vox.lex_sort()).features
-        k1, k2 = sorted_search.kernel_map_probe.launches, implicit_gemm.implicit_gemm_fwd.launches
+        k1, k2 = launches(sorted_search.kernel_map_probe), launches(implicit_gemm.implicit_gemm_fwd)
         got = model.to(cuda)(vox.to(cuda).lex_sort()).features.cpu()
-    assert sorted_search.kernel_map_probe.launches - k1 == 5
-    assert implicit_gemm.implicit_gemm_fwd.launches - k2 == 2 * 8 + 8  # 1 block a stage
+    assert launches(sorted_search.kernel_map_probe) - k1 == 5
+    assert launches(implicit_gemm.implicit_gemm_fwd) - k2 == 2 * 8 + 8  # 1 block a stage
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -264,19 +273,18 @@ def test_k2_dgrad_and_k3_match_plain(cuda, dtype, c_in, c_out):
     for name, x, g, bpt in _bwd_cases(cuda, c_in, c_out, dtype):
         k = bpt.table.shape[1]
         w = (torch.randn((k, c_in, c_out), device=cuda) / (k * c_in) ** 0.5).to(dtype)
-        fwd, dg, wg = (implicit_gemm.implicit_gemm_fwd.launches,
-                       implicit_gemm.implicit_gemm_dgrad.launches,
-                       implicit_gemm.implicit_gemm_wgrad.launches)
+        tracing.reset_counters()
         dx = implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev)
-        implicit_gemm.reset_work_counts()
-        dw = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
-        floats = implicit_gemm.work_counts(cuda)["wgrad_dw_floats"]
+        with tracing.recording():
+            dw = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
+        floats = tracing.counters(cuda)["k3.dw_floats"]
         plan = implicit_gemm.implicit_gemm_wgrad.plan
         ref_dx = implicit_gemm.implicit_gemm_dgrad_plain(g, w, bpt.rev)
         ref_dw = implicit_gemm.implicit_gemm_wgrad_plain(x, g, bpt.table)
         torch.cuda.synchronize()
-        assert (implicit_gemm.implicit_gemm_fwd.launches, implicit_gemm.implicit_gemm_dgrad.launches,
-                implicit_gemm.implicit_gemm_wgrad.launches) == (fwd, dg + 1, wg + 1), name
+        assert (launches(implicit_gemm.implicit_gemm_fwd),
+                launches(implicit_gemm.implicit_gemm_dgrad),
+                launches(implicit_gemm.implicit_gemm_wgrad)) == (0, 1, 1), name
         assert dx.dtype == dtype and dx.shape == x.shape, name
         assert dw.dtype == torch.float32 and dw.shape == (k, c_in, c_out), name
         torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
@@ -312,13 +320,13 @@ def test_k3_and_k7_on_a_small_map_take_the_shortest_chunks(cuda, dtype, c):
         n_out = bpt.table.shape[2]
         assert 256 < n_out < 1024 and n_out % 256 != 0, name
         g = (torch.randn((2, n_out, c), generator=gen, device=cuda) / n_out ** 0.5).to(dtype)
-        implicit_gemm.reset_work_counts()
-        depthwise_fma.reset_work_counts()
-        dw3 = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
-        dw7 = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+        tracing.reset_counters()
+        with tracing.recording():
+            dw3 = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
+            dw7 = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
         plan3, plan7 = implicit_gemm.implicit_gemm_wgrad.plan, depthwise_fma.depthwise_fma_wgrad.plan
-        floats3 = implicit_gemm.work_counts(cuda)["wgrad_dw_floats"]
-        floats7 = depthwise_fma.work_counts(cuda)["wgrad_dw_floats"]
+        counts = tracing.counters(cuda)
+        floats3, floats7 = counts["k3.dw_floats"], counts["k7.dw_floats"]
         torch.cuda.synchronize()
         torch.testing.assert_close(dw3, implicit_gemm.implicit_gemm_wgrad_plain(x, g, bpt.table),
                                    **DW_TOL, msg=name)
@@ -335,13 +343,13 @@ def test_k3_and_k7_on_a_small_map_take_the_shortest_chunks(cuda, dtype, c):
 def test_k4_matches_plain_and_the_split_pair(cuda, dtype, c_in, c_out):
     name, x, g, bpt = _bwd_cases(cuda, c_in, c_out, dtype)[0]
     w = (torch.randn((27, c_in, c_out), device=cuda) / (27 * c_in) ** 0.5).to(dtype)
-    before = implicit_gemm.implicit_gemm_bwd_fused.launches
+    before = launches(implicit_gemm.implicit_gemm_bwd_fused)
     dx, dw = implicit_gemm.implicit_gemm_bwd_fused(x, g, w, bpt.table, bpt.offsets)
     ref_dx, ref_dw = implicit_gemm.implicit_gemm_bwd_fused_plain(x, g, w, bpt.table, bpt.offsets)
     split_dx = implicit_gemm.implicit_gemm_dgrad(g, w, bpt.table.flip(1).contiguous())
     split_dw = implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
     torch.cuda.synchronize()
-    assert implicit_gemm.implicit_gemm_bwd_fused.launches == before + 1
+    assert launches(implicit_gemm.implicit_gemm_bwd_fused) == before + 1
     assert dx.dtype == dtype and dw.dtype == torch.float32
     for rdx, rdw in ((ref_dx, ref_dw), (split_dx, split_dw)):
         torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
@@ -403,13 +411,13 @@ def test_small_unet_train_step_on_cuda_gives_every_parameter_a_grad(cuda):
     for dev in ("cpu", cuda):
         model = MinkUNetBase(3, 5, device=dev, generator=torch.Generator().manual_seed(0), **kw)
         step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), 1e-3), 5)
-        counts = [f.launches for f in (sorted_search.kernel_map_probe,
+        counts = [launches(f) for f in (sorted_search.kernel_map_probe,
                                        implicit_gemm.implicit_gemm_fwd,
                                        implicit_gemm.implicit_gemm_dgrad,
                                        implicit_gemm.implicit_gemm_wgrad,
                                        implicit_gemm.implicit_gemm_bwd_fused)]
         loss = float(step(vox.to(dev), labels.to(dev))["loss"])
-        after = [f.launches for f in (sorted_search.kernel_map_probe,
+        after = [launches(f) for f in (sorted_search.kernel_map_probe,
                                       implicit_gemm.implicit_gemm_fwd,
                                       implicit_gemm.implicit_gemm_dgrad,
                                       implicit_gemm.implicit_gemm_wgrad,
@@ -449,14 +457,14 @@ def test_k6_forward_and_dgrad_match_plain(cuda, dtype, c):
         k, n_out = bpt.table.shape[1], bpt.table.shape[2]
         w = torch.randn((k, c), generator=gen, device=cuda) / k ** 0.5
         g = torch.randn((2, n_out, c), generator=gen, device=cuda).to(dtype)
-        fwd, dg = depthwise_fma.depthwise_fma_fwd.launches, depthwise_fma.depthwise_fma_dgrad.launches
+        fwd, dg = launches(depthwise_fma.depthwise_fma_fwd), launches(depthwise_fma.depthwise_fma_dgrad)
         out = depthwise_fma.depthwise_fma_fwd(x, w, bpt.table)
         dx = depthwise_fma.depthwise_fma_dgrad(g, w, bpt.rev)
         ref = depthwise_fma.depthwise_fma_fwd_plain(x, w, bpt.table)
         ref_dx = depthwise_fma.depthwise_fma_dgrad_plain(g, w, bpt.rev)
         torch.cuda.synchronize()
-        assert (depthwise_fma.depthwise_fma_fwd.launches,
-                depthwise_fma.depthwise_fma_dgrad.launches) == (fwd + 1, dg + 1), name
+        assert (launches(depthwise_fma.depthwise_fma_fwd),
+                launches(depthwise_fma.depthwise_fma_dgrad)) == (fwd + 1, dg + 1), name
         assert out.dtype == dx.dtype == dtype and out.shape == (2, n_out, c), name
         torch.testing.assert_close(out.float(), ref.float(), **TOL[dtype], msg=name)
         torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
@@ -475,14 +483,15 @@ def test_k7_matches_plain(cuda, dtype, c):
     for name, bpt in maps.items():
         n_out = bpt.table.shape[2]
         g = (torch.randn((2, n_out, c), generator=gen, device=cuda) / n_out ** 0.5).to(dtype)
-        before = depthwise_fma.depthwise_fma_wgrad.launches
-        depthwise_fma.reset_work_counts()
-        dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
-        adds = depthwise_fma.work_counts(cuda)["wgrad_dw_floats"]
+        tracing.reset_counters()
+        before = launches(depthwise_fma.depthwise_fma_wgrad)
+        with tracing.recording():
+            dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+        adds = tracing.counters(cuda)["k7.dw_floats"]
         plan = depthwise_fma.depthwise_fma_wgrad.plan
         ref = depthwise_fma.depthwise_fma_wgrad_plain(x, g, bpt.table)
         torch.cuda.synchronize()
-        assert depthwise_fma.depthwise_fma_wgrad.launches == before + 1, name
+        assert launches(depthwise_fma.depthwise_fma_wgrad) == before + 1, name
         assert dw.dtype == torch.float32 and dw.shape == (bpt.table.shape[1], c), name
         torch.testing.assert_close(dw, ref, **DW_TOL, msg=name)
         assert adds == depthwise_fma.bwd_fused_dw_adds(bpt.table, c, plan["chunk_rows"]) > 0, name
@@ -498,9 +507,10 @@ def test_k7_on_the_conv_maps_matches_plain_and_counts_its_adds(cuda, dtype, c):
     own row counts), with the floats its blocks add into dw (its own
     count) equal to the host model at its plan's chunk rows."""
     for name, x, g, bpt in _bwd_cases(cuda, c, c, dtype):
-        depthwise_fma.reset_work_counts()
-        dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
-        adds = depthwise_fma.work_counts(cuda)["wgrad_dw_floats"]
+        tracing.reset_counters()
+        with tracing.recording():
+            dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
+        adds = tracing.counters(cuda)["k7.dw_floats"]
         plan = depthwise_fma.depthwise_fma_wgrad.plan
         ref = depthwise_fma.depthwise_fma_wgrad_plain(x, g, bpt.table)
         torch.cuda.synchronize()
@@ -520,13 +530,13 @@ def test_k8_matches_plain_and_the_split_pair(cuda, dtype, c, ks):
     gen = torch.Generator(device=cuda).manual_seed(4)
     g = (torch.randn(x.shape, generator=gen, device=cuda) / x.shape[1] ** 0.5).to(dtype)
     w = torch.randn((k, c), generator=gen, device=cuda) / k ** 0.5
-    before = depthwise_fma.depthwise_fma_bwd_fused.launches
+    before = launches(depthwise_fma.depthwise_fma_bwd_fused)
     dx, dw = depthwise_fma.depthwise_fma_bwd_fused(x, g, w, bpt.table, bpt.offsets)
     ref_dx, ref_dw = depthwise_fma.depthwise_fma_bwd_fused_plain(x, g, w, bpt.table, bpt.offsets)
     split_dx = depthwise_fma.depthwise_fma_dgrad(g, w, bpt.rev)
     split_dw = depthwise_fma.depthwise_fma_wgrad(x, g, bpt.table)
     torch.cuda.synchronize()
-    assert depthwise_fma.depthwise_fma_bwd_fused.launches == before + 1
+    assert launches(depthwise_fma.depthwise_fma_bwd_fused) == before + 1
     assert dx.dtype == dtype and dw.dtype == torch.float32
     for rdx, rdw in ((ref_dx, ref_dw), (split_dx, split_dw)):
         torch.testing.assert_close(dx.float(), rdx.float(), **TOL[dtype])
@@ -607,10 +617,11 @@ def test_k8_tiles_match_plain_and_k6_bits_and_count_their_dw_adds(cuda, dtype, c
     gen = torch.Generator(device=cuda).manual_seed(14)
     g = (torch.randn(x.shape, generator=gen, device=cuda) / x.shape[1] ** 0.5).to(dtype)
     w = torch.randn((k, c), generator=gen, device=cuda) / k ** 0.5
-    depthwise_fma.reset_work_counts()
-    dx, dw = depthwise_fma.depthwise_fma_bwd_fused(x, g, w, bpt.table, bpt.offsets)
+    tracing.reset_counters()
+    with tracing.recording():
+        dx, dw = depthwise_fma.depthwise_fma_bwd_fused(x, g, w, bpt.table, bpt.offsets)
     plan = depthwise_fma.depthwise_fma_bwd_fused.plan
-    count = depthwise_fma.work_counts(cuda)["fused_dw_floats"]
+    count = tracing.counters(cuda)["k8.dw_floats"]
     ref_dx, ref_dw = depthwise_fma.depthwise_fma_bwd_fused_plain(x, g, w, bpt.table, bpt.offsets)
     torch.cuda.synchronize()
     torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype])
@@ -664,10 +675,10 @@ def test_convnext_block_on_cuda_matches_cpu_plain_route(cuda):
                                     generator=torch.Generator().manual_seed(0))
         v = vox.to(dev)
         x = v.features.clone().requires_grad_(True)
-        before = [f.launches for f in fns]
+        before = [launches(f) for f in fns]
         out = block(v.replace(features=x))
         (out.features ** 2).sum().backward()
-        launched = dict(zip(keys, (f.launches - b for f, b in zip(fns, before))))
+        launched = dict(zip(keys, (launches(f) - b for f, b in zip(fns, before))))
         grads = {n: p.grad.cpu() for n, p in block.named_parameters()}
         assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
         grads["input"] = x.grad.cpu()
@@ -725,11 +736,11 @@ def _k9_case(cuda, layout, dtype, d, h=2):
 @pytest.mark.parametrize("layout", ["global", "grouped", "cross"])
 def test_k9_matches_plain(cuda, layout, dtype, d):
     q, k, v, seg_q, seg_kv = _k9_case(cuda, layout, dtype, d)
-    before = k9.segment_attention_fwd.launches
+    before = launches(k9.segment_attention_fwd)
     got = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
     ref = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv)
     torch.cuda.synchronize()
-    assert k9.segment_attention_fwd.launches == before + 1
+    assert launches(k9.segment_attention_fwd) == before + 1
     assert got.dtype == dtype and got.shape == q.shape and got.is_contiguous()
     torch.testing.assert_close(got.float(), ref.float(), **K9_TOL[dtype])
     if layout == "cross":
@@ -783,9 +794,9 @@ def test_small_volt_on_cuda_matches_cpu_plain_route(cuda):
            k9.segment_attention_fwd)
     with torch.inference_mode():
         ref = model(vox.lex_sort()).features
-        before = [f.launches for f in fns]
+        before = [launches(f) for f in fns]
         got = model.to(cuda)(vox.to(cuda).lex_sort()).features.cpu()
-    assert [f.launches - b for f, b in zip(fns, before)] == [1, 2, 2]
+    assert [launches(f) - b for f, b in zip(fns, before)] == [1, 2, 2]
     assert bool((got[~vox.valid_mask()] == 0).all())
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
 
@@ -851,11 +862,11 @@ def test_k9_bwd_matches_plain(cuda, layout, dtype, d):
     q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, layout, dtype, d)
     out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
     _, ref_lse = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, return_lse=True)
-    before = (k9.segment_attention_bwd_dkv.launches, k9.segment_attention_bwd_dq.launches)
+    before = (launches(k9.segment_attention_bwd_dkv), launches(k9.segment_attention_bwd_dq))
     got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
     ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
     torch.cuda.synchronize()
-    assert (k9.segment_attention_bwd_dkv.launches, k9.segment_attention_bwd_dq.launches) == (
+    assert (launches(k9.segment_attention_bwd_dkv), launches(k9.segment_attention_bwd_dq)) == (
         before[0] + 1, before[1] + 1)
     finite = torch.isfinite(ref_lse)
     assert lse.dtype == torch.float32 and torch.equal(torch.isfinite(lse), finite)
@@ -1134,10 +1145,10 @@ def test_segment_attention_grads_through_the_function_on_cuda(cuda, dtype):
     q, k, v = (t.detach().clone().requires_grad_(True) for t in (q0, k0, v0))
     fns = (k9.segment_attention_bwd_dkv, k9.segment_attention_bwd_dq)
     out = segment_attention(q, k, v, seg_q, seg_kv)
-    before = [f.launches for f in fns]
+    before = [launches(f) for f in fns]
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    assert [f.launches - b for f, b in zip(fns, before)] == [1, 1]
+    assert [launches(f) - b for f, b in zip(fns, before)] == [1, 1]
     _, lse = k9.segment_attention_fwd(q0, k0, v0, seg_q, seg_kv, return_lse=True)
     di = k9.rowsum_o_do(out.detach(), do)
     args = (q0, k0, v0, do, lse, di, seg_q, seg_kv)
@@ -1168,9 +1179,9 @@ def test_attention_grads_reach_the_fused_qkv_projection_on_cuda(cuda):
                         generator=torch.Generator().manual_seed(1))
         x = x0.to(dev).detach().requires_grad_(True)
         fns = (k9.segment_attention_fwd, k9.segment_attention_bwd_dkv, k9.segment_attention_bwd_dq)
-        before = [f.launches for f in fns]
+        before = [launches(f) for f in fns]
         (att(x, valid.to(dev), coords.to(dev)) * r.to(dev)).sum().backward()
-        launched = [f.launches - b for f, b in zip(fns, before)]
+        launched = [launches(f) - b for f, b in zip(fns, before)]
         grads = {n: p.grad for n, p in att.named_parameters()}
         grads["x"] = x.grad
         assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
@@ -1197,9 +1208,9 @@ def test_small_volt_train_step_on_cuda_gives_every_parameter_a_grad(cuda):
         model = build_volt("volt-s", 3, 5, dim=32, num_heads=2, depth=2, stem_dim=8, device=dev,
                            generator=torch.Generator().manual_seed(0))
         step = make_segmentation_train_step(model, torch.optim.Adam(model.parameters(), 1e-3), 5)
-        before = [f.launches for f in fns]
+        before = [launches(f) for f in fns]
         loss = float(step(vox.to(dev), labels.to(dev))["loss"])
-        launched = [f.launches - b for f, b in zip(fns, before)]
+        launched = [launches(f) - b for f, b in zip(fns, before)]
         grads = {n: p.grad for n, p in model.named_parameters()}
         assert all(g is not None and bool(torch.isfinite(g).all()) for g in grads.values())
         results.append((loss, {n: g.cpu() for n, g in grads.items()}, launched))
@@ -1281,14 +1292,14 @@ def test_k2_and_its_dgrad_in_the_maps_row_order_match_plain(cuda, dtype, c_in, c
         w = (torch.randn((k, c_in, c_out), generator=gen, device=cuda) / (k * c_in) ** 0.5)
         x, w = x.to(dtype).contiguous(), w.to(dtype)
         g = (torch.randn((2, n_out, c_out), generator=gen, device=cuda) / n_out ** 0.5).to(dtype)
-        fwd, dg = implicit_gemm.implicit_gemm_fwd.launches, implicit_gemm.implicit_gemm_dgrad.launches
+        fwd, dg = launches(implicit_gemm.implicit_gemm_fwd), launches(implicit_gemm.implicit_gemm_dgrad)
         got = implicit_gemm.implicit_gemm_fwd(x, w, bpt.table, order=bpt.order)
         dx = implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev, order=bpt.rev_order)
         ref = implicit_gemm.implicit_gemm_fwd_plain(x, w, bpt.table)
         ref_dx = implicit_gemm.implicit_gemm_dgrad_plain(g, w, bpt.rev)
         torch.cuda.synchronize()
-        assert (implicit_gemm.implicit_gemm_fwd.launches,
-                implicit_gemm.implicit_gemm_dgrad.launches) == (fwd + 1, dg + 1), name
+        assert (launches(implicit_gemm.implicit_gemm_fwd),
+                launches(implicit_gemm.implicit_gemm_dgrad)) == (fwd + 1, dg + 1), name
         assert got.dtype == dtype and got.shape == (2, n_out, c_out), name
         torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype], msg=name)
         torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
@@ -1306,13 +1317,13 @@ def test_k4_in_the_maps_row_order_matches_plain(cuda, dtype, c_in, c_out):
         w = (torch.randn((k, c_in, c_out), generator=gen, device=cuda) / (k * c_in) ** 0.5)
         x, w = x.to(dtype).contiguous(), w.to(dtype)
         g = (torch.randn((2, n, c_out), generator=gen, device=cuda) / n ** 0.5).to(dtype)
-        before = implicit_gemm.implicit_gemm_bwd_fused.launches
+        before = launches(implicit_gemm.implicit_gemm_bwd_fused)
         dx, dw = implicit_gemm.implicit_gemm_bwd_fused(x, g, w, bpt.table, bpt.offsets,
                                                        order=bpt.order)
         ref_dx, ref_dw = implicit_gemm.implicit_gemm_bwd_fused_plain(x, g, w, bpt.table,
                                                                      bpt.offsets)
         torch.cuda.synchronize()
-        assert implicit_gemm.implicit_gemm_bwd_fused.launches == before + 1, name
+        assert launches(implicit_gemm.implicit_gemm_bwd_fused) == before + 1, name
         assert dx.dtype == dtype and dw.dtype == torch.float32, name
         torch.testing.assert_close(dx.float(), ref_dx.float(), **TOL[dtype], msg=name)
         torch.testing.assert_close(dw, ref_dw, **DW_TOL, msg=name)
@@ -1334,9 +1345,11 @@ def test_k2_and_k4_wrappers_raise_on_a_bad_order(cuda):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_and_k4_count_their_work_as_the_host_models_do(cuda, dtype):
-    """The kernels' own counts (``work_counts``) equal ``tile_work`` in
-    either order and, for K4's dw, ``bwd_fused_dw_atomics`` at the chunk
-    rows of the dtype's dw blocks."""
+    """The kernels' own counts (``tracing`` device counters, while
+    recording) equal ``tile_work`` in either order, K2's useful pairs the
+    table's entries >= 0 and, for K4's dw, ``bwd_fused_dw_atomics`` at the
+    chunk rows of the dtype's dw blocks; with nothing recording the kernels
+    count nothing."""
     chunk_rows = implicit_gemm.DW_ROWS if dtype == torch.bfloat16 else implicit_gemm.F_DW_ROWS
     gen = torch.Generator(device=cuda).manual_seed(7)
     for name, x, bpt in _ordered_maps(cuda, 96):
@@ -1345,20 +1358,34 @@ def test_k2_and_k4_count_their_work_as_the_host_models_do(cuda, dtype):
         x = x.to(dtype).contiguous()
         g = torch.randn((2, n_out, 160), generator=gen, device=cuda).to(dtype)
         for order in (None, bpt.order):
-            implicit_gemm.reset_work_counts()
-            implicit_gemm.implicit_gemm_fwd(x, w, bpt.table, order=order)
-            got = implicit_gemm.work_counts(cuda)
-            assert got["fwd_tile_work"] == implicit_gemm.tile_work(bpt.table, order)[0], name
+            tracing.reset_counters()
+            with tracing.recording():
+                implicit_gemm.implicit_gemm_fwd(x, w, bpt.table, order=order)
+            got = tracing.counters(cuda)
+            work, pairs = implicit_gemm.tile_work(bpt.table, order)
+            assert (got["k2.fwd_tile_work"], got["k2.fwd_pairs"]) == (work, pairs), name
+            assert work >= pairs > 0, name
         rev_order = bpt.rev_order
-        implicit_gemm.reset_work_counts()
-        implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev, order=rev_order)
-        got = implicit_gemm.work_counts(cuda)
-        assert got["dgrad_tile_work"] == implicit_gemm.tile_work(bpt.rev, rev_order)[0], name
+        tracing.reset_counters()
+        with tracing.recording():
+            implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev, order=rev_order)
+        got = tracing.counters(cuda)
+        assert got["k2.dgrad_tile_work"] == implicit_gemm.tile_work(bpt.rev, rev_order)[0], name
         if bpt.symmetric_self_map:
-            implicit_gemm.reset_work_counts()
+            tracing.reset_counters()
+            with tracing.recording():
+                implicit_gemm.implicit_gemm_bwd_fused(x, g, w, bpt.table, bpt.offsets,
+                                                      order=bpt.order)
+            got = tracing.counters(cuda)
+            assert got["k4.tile_work"] == implicit_gemm.tile_work(bpt.table, bpt.order)[0]
+            assert got["k4.dw_floats"] == implicit_gemm.bwd_fused_dw_atomics(
+                bpt.table, 96, 160, chunk_rows) > 0, name
+        tracing.reset_counters()  # nothing records: null counters, no atomics
+        implicit_gemm.implicit_gemm_fwd(x, w, bpt.table, order=bpt.order)
+        implicit_gemm.implicit_gemm_dgrad(g, w, bpt.rev, order=rev_order)
+        implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table)
+        if bpt.symmetric_self_map:
             implicit_gemm.implicit_gemm_bwd_fused(x, g, w, bpt.table, bpt.offsets,
                                                   order=bpt.order)
-            got = implicit_gemm.work_counts(cuda)
-            assert got["fused_tile_work"] == implicit_gemm.tile_work(bpt.table, bpt.order)[0]
-            assert got["fused_dw_floats"] == implicit_gemm.bwd_fused_dw_atomics(
-                bpt.table, 96, 160, chunk_rows) > 0, name
+        got = tracing.counters(cuda)
+        assert all(got[k] == 0 for k in tracing.DEVICE_KEYS), name

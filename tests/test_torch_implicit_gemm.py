@@ -10,6 +10,7 @@ import torch
 
 from warpconvnet_tpu.kernels.implicit_gemm import implicit_gemm_fwd as jax_igemm_fwd
 from warpconvnet_tpu.nn.functional.sparse_conv import _fwd_impl
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.kernels import implicit_gemm
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
@@ -68,7 +69,7 @@ def test_plain_matches_jax_pallas_and_explicit(kind):
     explicit = jax.jit(lambda *a: _fwd_impl(*a, jnp.float32))(jx, jw, jt)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(explicit), **TOL)
-    assert implicit_gemm.implicit_gemm_fwd.launches == 0  # CPU: plain version
+    assert tracing.counters().get("launches.implicit_gemm_fwd", 0) == 0  # CPU: plain version
 
 
 def test_invalid_entries_add_exactly_zero():

@@ -16,6 +16,7 @@ import torch
 from tests.test_torch_implicit_gemm import _voxels, _weight
 from warpconvnet_tpu.kernels import implicit_gemm as jig
 from warpconvnet_tpu.nn.functional.sparse_conv import _dgrad_impl, _wgrad_impl
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import implicit_gemm
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
     generate_output_coords_and_kernel_map,
@@ -84,7 +85,7 @@ def test_dgrad_plain_matches_jax_pallas_and_explicit(kind):
     unreached = (bpt.rev < 0).all(dim=1)
     assert bool(unreached.any()) == (kind != "transposed")
     assert torch.equal(got[unreached], torch.zeros_like(got[unreached]))
-    assert implicit_gemm.implicit_gemm_dgrad.launches == 0  # CPU: plain version
+    assert tracing.counters().get("launches.implicit_gemm_dgrad", 0) == 0  # CPU: plain version
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -100,7 +101,7 @@ def test_wgrad_plain_matches_jax_pallas_and_explicit(kind):
     explicit = jax.jit(lambda *a: _wgrad_impl(*a, jnp.float32))(jx, jg, jt)
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **TOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(explicit), **TOL)
-    assert implicit_gemm.implicit_gemm_wgrad.launches == 0
+    assert tracing.counters().get("launches.implicit_gemm_wgrad", 0) == 0
 
 
 def test_fused_bwd_plain_matches_jax_pallas_and_explicit_pair():
@@ -127,7 +128,7 @@ def test_fused_bwd_plain_matches_jax_pallas_and_explicit_pair():
     # The split route (K2-dgrad + K3) gives the same pair.
     torch.testing.assert_close(dx, implicit_gemm.implicit_gemm_dgrad(g, torch.from_numpy(w), bpt.rev), **TOL)
     torch.testing.assert_close(dw, implicit_gemm.implicit_gemm_wgrad(x, g, bpt.table), **TOL)
-    assert implicit_gemm.implicit_gemm_bwd_fused.launches == 0
+    assert tracing.counters().get("launches.implicit_gemm_bwd_fused", 0) == 0
 
 
 @pytest.mark.parametrize("kind", ["submanifold", "transposed"])

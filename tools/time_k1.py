@@ -80,7 +80,10 @@ def run_tree(tree):
 
     cs = load_smoke()
     dev = torch.device("cuda", 0)
-    counted = hasattr(sorted_search, "probe_tile_counts")
+    try:  # the counter registry (a tree without it reports no share)
+        from warpconvnet_tpu_torch import tracing
+    except ImportError:
+        tracing = None
     cases = []
     for name, coord_range, offsets in (
         ("L0 3^3", 512, kernel_offsets(3)), ("7^3", 512, kernel_offsets(7)),
@@ -89,14 +92,17 @@ def run_tree(tree):
         vox = cs.make_batch(0, cs.N_CAP, dev, coord_range=coord_range).lex_sort()
         keys = coord_keys(torch.where(vox.valid_mask()[..., None], vox.coords, PAD_COORD))
         args = (keys, vox.num_valid, vox.coords, vox.num_valid, offsets, (1, 1, 1))
-        if counted:
-            sorted_search.reset_probe_tile_counts()
-        table = sorted_search.kernel_map_probe(*args)
+        if tracing is not None:
+            tracing.reset_counters()
+            with tracing.recording():
+                table = sorted_search.kernel_map_probe(*args)
+        else:
+            table = sorted_search.kernel_map_probe(*args)
         torch.cuda.synchronize()
         share = None
-        if counted:
-            tiles, wide = sorted_search.probe_tile_counts(dev)
-            share = wide / tiles
+        if tracing is not None:
+            c = tracing.counters(dev)
+            share = c["k1.wide_tiles"] / c["k1.tiles"]
         h = hashlib.sha1(table.cpu().numpy().tobytes()).hexdigest()
         del table
 

@@ -122,7 +122,10 @@ def shape_times(cs, torch, vox):
         row.update(timed(cs, torch, lambda: dw.depthwise_fma_wgrad(x, g, down.table)))
         rows.append(row)
         cs.log(f"K7 {row['shape']}: {row}")
-    counts = hasattr(dw, "work_counts")
+    try:  # the counter registry (a tree without it reports no count)
+        from warpconvnet_tpu_torch import tracing
+    except ImportError:
+        tracing = None
     for name, dtype in (("7^3", bf), ("3^3", bf), ("3^3", f32)):
         table, offsets = maps[name]
         k = table.shape[1]
@@ -131,11 +134,13 @@ def shape_times(cs, torch, vox):
         g = rand((cs.B, n0, c), dtype) * mask
         w = rand((k, c), torch.float32, k ** -0.5)
         row = dict(kind="K8", shape=f"{name} C{c} {str(dtype)[6:]}")
-        if counts:
-            dw.reset_work_counts()
-        dx = dw.depthwise_fma_bwd_fused(x, g, w, table, offsets)[0]
-        if counts:
-            row["dw_floats"] = dw.work_counts(x.device)["fused_dw_floats"]
+        if tracing is not None:
+            tracing.reset_counters()
+            with tracing.recording():
+                dx = dw.depthwise_fma_bwd_fused(x, g, w, table, offsets)[0]
+            row["dw_floats"] = tracing.counters(x.device)["k8.dw_floats"]
+        else:
+            dx = dw.depthwise_fma_bwd_fused(x, g, w, table, offsets)[0]
         row["pair_ms"] = cs.cuda_ms(lambda: (dw.depthwise_fma_dgrad(g, w, flip),
                                              dw.depthwise_fma_wgrad(x, g, table)))
         record(row, lambda: dw.depthwise_fma_bwd_fused(x, g, w, table, offsets), dx)

@@ -415,7 +415,7 @@ __device__ __forceinline__ void gather_gemm_bf16(
     done += n_steps;
     __syncthreads();  // the slab and the ring are free for the next offsets
   }
-  if (t == 0 && chunk == 0 && walked != 0) atomicAdd(work, walked * BM);
+  if (work != nullptr && t == 0 && chunk == 0 && walked != 0) atomicAdd(work, walked * BM);
 
   // Thread tw of warpgroup wg holds its tile's rows 16 (tw / 32) + g and
   // that + 8 (g = tw % 32 / 4), columns 8 i + 2 (tw % 4) + {0, 1} of each
@@ -518,7 +518,7 @@ __device__ __forceinline__ void gather_gemm_f32(
     }
     __syncthreads();  // the slab is free for the next offsets
   }
-  if (t == 0 && n0 == 0 && walked != 0) atomicAdd(work, walked * BM);
+  if (work != nullptr && t == 0 && n0 == 0 && walked != 0) atomicAdd(work, walked * BM);
   float* ob = out + int64_t(b) * n_out * c_out;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -710,7 +710,7 @@ __device__ __forceinline__ void dw_chunk_bf16(PairList<NWG * WG, DW_ROWS>& pl,
   __syncthreads();
   float* out = dw + (int64_t(k) * c_in + n0) * c_out + co0;
   const int n_rows = c_in - n0, n_cols = c_out - co0;
-  if (t == 0)
+  if (dw_floats != nullptr && t == 0)
     atomicAdd(dw_floats,
               (unsigned long long)(n_rows < W ? n_rows : W) * (n_cols < CO ? n_cols : CO));
   if (c_out % 4 == 0 && reinterpret_cast<uintptr_t>(dw) % 16 == 0) {
@@ -780,7 +780,7 @@ __device__ __forceinline__ void dw_chunk_f32(PairList<F_THREADS, F_DW_ROWS>& pl,
     __syncthreads();
   }
   float* dk = dw + int64_t(k) * c_in * c_out;
-  if (t == 0)
+  if (dw_floats != nullptr && t == 0)
     atomicAdd(dw_floats, (unsigned long long)(c_in - ci0 < 64 ? c_in - ci0 : 64) *
                              (c_out - co0 < 64 ? c_out - co0 : 64));
 #pragma unroll

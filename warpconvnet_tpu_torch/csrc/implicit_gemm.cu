@@ -114,7 +114,7 @@ extern "C" int64_t wct_igemm_image_bytes(int k_vol, int c_in, int c_out, int n_o
 // the tiles take them (a permutation of 0 .. N_out - 1), or null for the
 // index order. img: bf16 scratch of wct_igemm_image_bytes bytes, 16-byte
 // aligned (null for fp32). work: one counter, to which the launch adds its
-// tile work (64 rows for each (tile, offset) computed).
+// tile work (64 rows for each (tile, offset) computed), or null.
 extern "C" int wct_igemm_fwd(const void* x, const void* w, const int32_t* table,
                              const int32_t* order, void* out, void* img, int b, int n_in,
                              int n_out, int k_vol, int c_in, int c_out, int w_trans, int dtype,

@@ -85,7 +85,7 @@ igemm_bwd_fused_f32(const float* __restrict__ x, const float* __restrict__ g,
     const int lo = rc * F_DW_ROWS, hi = lo + F_DW_ROWS < n ? lo + F_DW_ROWS : n;
     PairList<F_THREADS, F_DW_ROWS> pl(reinterpret_cast<unsigned char*>(u.dw.pairs), F_DW_ROWS);
     dw_chunk_f32(pl, u.dw.sm, x, g, table, dw, b, k, ci * 64, co0, lo, hi, n, n, k_vol, c_in,
-                 c_out, counts + 1);
+                 c_out, counts != nullptr ? counts + 1 : nullptr);
   }
 }
 
@@ -124,7 +124,8 @@ igemm_bwd_fused_bf16(const bf16* __restrict__ x, const bf16* __restrict__ g,
     const int lo = rc * DW_ROWS, hi = lo + DW_ROWS < n ? lo + DW_ROWS : n;
     PairList<NWG * WG, DW_ROWS> pl(scratch, DW_ROWS);
     dw_chunk_bf16<W, NWG, kStages<W, NWG>>(pl, ring, x, g, table, dw, b, k, ci * W, co0, lo, hi,
-                                           n, n, k_vol, c_in, c_out, vec, counts + 1);
+                                           n, n, k_vol, c_in, c_out, vec,
+                                           counts != nullptr ? counts + 1 : nullptr);
   }
 }
 
@@ -168,7 +169,7 @@ cudaError_t launch_width(const bf16* x, const bf16* g, const unsigned char* wimg
 // 16-byte aligned (null for fp32). dw must be zeroed; every row of dx is
 // written. counts: two counters, to which the launch adds dx's tile work
 // (64 rows for each (tile, offset) computed) and the floats its dw blocks
-// add into dw.
+// add into dw, or null (nothing counted).
 extern "C" int wct_igemm_bwd_fused(const void* x, const void* g, const void* w,
                                    const int32_t* table, const int32_t* order, void* dx,
                                    float* dw, void* img, int b, int n, int k_vol, int c_in,

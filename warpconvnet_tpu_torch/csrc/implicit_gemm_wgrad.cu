@@ -144,7 +144,7 @@ cudaError_t launch_width(const bf16* x, const bf16* g, const int32_t* table, flo
 
 // dtype: 0 = float32, 1 = bfloat16 (x and g share it). dw must be zeroed.
 // dw_floats: an int64 counter to which the blocks add the floats they add
-// into dw. plan (may be null): 2 ints written before the launch, its
+// into dw, or null. plan (may be null): 2 ints written before the launch, its
 // blocks and the rows of a chunk.
 extern "C" int wct_igemm_wgrad(const void* x, const void* g, const int32_t* table, float* dw,
                                int b, int n_in, int n_out, int k_vol, int c_in, int c_out,

@@ -238,14 +238,14 @@ probe_kernel(const int64_t* __restrict__ keys,        // [B, N]
                               : (v == LLONG_MIN ? 0 : warp_lower_bound(kb, nv, v + 1, lane));
     if (lane == 0) {
       if (warp == 0) win_lo = pos; else win_hi = pos;
-      if (warp == 0 && v != LLONG_MAX) atomicAdd(counts, 1ull);
+      if (counts != nullptr && warp == 0 && v != LLONG_MAX) atomicAdd(counts, 1ull);
     }
   }
   __syncthreads();
   const int lo = win_lo, w = win_hi - lo;
   const int64_t* kb = keys + int64_t(b) * n + lo;
   const bool fits = w <= kWindow;
-  if (threadIdx.x == 0 && !fits) atomicAdd(counts + 1, 1ull);
+  if (counts != nullptr && threadIdx.x == 0 && !fits) atomicAdd(counts + 1, 1ull);
   for (int i = threadIdx.x; i < n_groups; i += kTile) s_groups[i] = groups[i];
   for (int i = threadIdx.x; i < k_vol; i += kTile) s_slots[i] = slots[i];
   if (fits) {
@@ -269,6 +269,8 @@ probe_kernel(const int64_t* __restrict__ keys,        // [B, N]
 
 }  // namespace
 
+// counts: two counters (tiles with a valid query, tiles walked in device
+// memory) to which the launch adds, or null (nothing counted).
 extern "C" int wct_kernel_map_probe(const int64_t* keys, const int32_t* in_nv, int n,
                                     const int32_t* out_coords, const int32_t* out_nv,
                                     int m, const int32_t* desc, int n_groups, int k_vol,

@@ -13,7 +13,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from warpconvnet_tpu_torch import constants
+from warpconvnet_tpu_torch import constants, tracing
 from warpconvnet_tpu_torch.geometry.base import GeometryMixin
 from warpconvnet_tpu_torch.ops.keys import PAD_COORD, argsort_keys, coord_keys
 
@@ -75,6 +75,7 @@ class Voxels(GeometryMixin):
             num_valid=self.num_valid.to(device),
         )
 
+    @tracing.spanned("wcn.map.lex_sort")
     def lex_sort(self) -> "Voxels":
         """Sort each scene's rows lexicographically (x, y, z ascending); pad
         rows go last in their original order (a stable sort, like the JAX

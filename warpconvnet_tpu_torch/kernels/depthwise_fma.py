@@ -16,8 +16,8 @@ weight stays fp32; products and sums are fp32 (the JAX explicit scans,
 ``sparse_conv_depth.py:66-105``). Outputs and dx come back in the features'
 dtype, dw in fp32. A -1 table entry adds exactly zero. Each wrapper runs its
 CUDA kernel (``csrc/depthwise_fma.cu``) on CUDA tensors and its ``*_plain``
-version on CPU tensors, counts its launches in ``.launches``, and raises on
-what its kernel does not take.
+version on CPU tensors, counts its launches (``tracing`` host counter
+``launches.<wrapper>``), and raises on what its kernel does not take.
 
 K6 walks tiles of 64 or 128 rows with the table tile of each round of 32
 offsets staged ahead in shared memory; each row sums its offsets in
@@ -25,20 +25,22 @@ ascending order with fp32 ``fmaf``, so K6's output has the same bits on
 every call. K8 is one launch of two kinds of blocks: dx blocks run K6's
 walk on ``(g, w.flip(0), table)`` (its bits), and dw blocks, one for each
 offset and chunk of rows, sum their pairs on chip and add into dw once;
-K7 is those dw blocks alone. The kernels count those floats
-(:func:`work_counts`), which :func:`bwd_fused_dw_adds` models on the host
-from the table and the launch's plan (``depthwise_fma_bwd_fused.plan``,
+K7 is those dw blocks alone. While recording, the kernels count those
+floats in ``tracing``'s device counters ``k8.dw_floats`` and
+``k7.dw_floats``, which :func:`bwd_fused_dw_adds` models on the host from
+the table and the launch's plan (``depthwise_fma_bwd_fused.plan``,
 ``depthwise_fma_wgrad.plan``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import _build
 from warpconvnet_tpu_torch.kernels.implicit_gemm import _check_self_map, _gather_rows
 
@@ -103,8 +105,8 @@ def depthwise_fma_bwd_fused_plain(
 
 def bwd_fused_dw_adds(table: torch.Tensor, c: int, chunk_rows: int) -> int:
     """Floats that K8's or K7's dw blocks add into dw on ``table`` [B, K,
-    N] at C channels, a host model of the kernels' counts
-    (:func:`work_counts` ``fused_dw_floats``, ``wgrad_dw_floats``): each
+    N] at C channels, a host model of the kernels' counts (``tracing``
+    ``k8.dw_floats``, ``k7.dw_floats``): each
     (scene, offset, chunk of ``chunk_rows`` rows) with a pair sums its
     pairs on chip and adds its C channels of dw[k] once. The launch's
     ``chunk_rows`` is in ``depthwise_fma_bwd_fused.plan`` or
@@ -113,35 +115,6 @@ def bwd_fused_dw_adds(table: torch.Tensor, c: int, chunk_rows: int) -> int:
     chunks = -(-n // chunk_rows)
     met = torch.nn.functional.pad(table >= 0, (0, chunks * chunk_rows - n))
     return int(met.reshape(b, k, chunks, chunk_rows).any(-1).sum()) * c
-
-
-_COUNT_KEYS = ("fused_dw_floats", "wgrad_dw_floats")
-_work_counts: Dict[torch.device, torch.Tensor] = {}
-
-
-def _counter(device: torch.device, key: str) -> int:
-    """Address of ``key``'s int64 counter on ``device`` (the kernels add to it)."""
-    if device not in _work_counts:
-        _work_counts[device] = torch.zeros(len(_COUNT_KEYS), dtype=torch.int64, device=device)
-    return _work_counts[device].data_ptr() + 8 * _COUNT_KEYS.index(key)
-
-
-def work_counts(device) -> Dict[str, int]:
-    """What the kernels did on ``device`` since :func:`reset_work_counts`:
-    the floats K8's and K7's blocks added into dw (``fused_dw_floats``,
-    ``wgrad_dw_floats``, as :func:`bwd_fused_dw_adds` counts them).
-    Synchronises."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device(device.type, torch.cuda.current_device())
-    if device not in _work_counts:
-        return dict.fromkeys(_COUNT_KEYS, 0)
-    return dict(zip(_COUNT_KEYS, _work_counts[device].tolist()))
-
-
-def reset_work_counts() -> None:
-    for c in _work_counts.values():
-        c.zero_()
 
 
 def _cuda_args(name, accum_dtype, feats, table, weight=None):
@@ -207,7 +180,7 @@ def depthwise_fma_fwd(
     if x.device.type == "cpu":
         return depthwise_fma_fwd_plain(x, weight, table, accum_dtype)
     out = _launch_fwd("depthwise_fma_fwd", x, weight, table, accum_dtype)
-    depthwise_fma_fwd.launches += 1
+    tracing.add("launches.depthwise_fma_fwd")
     return out
 
 
@@ -217,13 +190,13 @@ def depthwise_fma_dgrad(
     rev: torch.Tensor,
     accum_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
-    """K6 on ``(g, w, rev)`` on CUDA tensors (counted here, not in
-    ``depthwise_fma_fwd.launches``), :func:`depthwise_fma_dgrad_plain` on
-    CPU tensors."""
+    """K6 on ``(g, w, rev)`` on CUDA tensors (counted as
+    ``launches.depthwise_fma_dgrad``, not as the forward's launches),
+    :func:`depthwise_fma_dgrad_plain` on CPU tensors."""
     if g.device.type == "cpu":
         return depthwise_fma_dgrad_plain(g, weight, rev, accum_dtype)
     dx = _launch_fwd("depthwise_fma_dgrad", g, weight, rev, accum_dtype)
-    depthwise_fma_dgrad.launches += 1
+    tracing.add("launches.depthwise_fma_dgrad")
     return dx
 
 
@@ -252,10 +225,10 @@ def depthwise_fma_wgrad(
     rc = lib.wct_depth_wgrad(
         x.data_ptr(), g.data_ptr(), table.data_ptr(), dw.data_ptr(),
         b, n_in, n_out, k_vol, c, _DTYPE_CODES[x.dtype],
-        _counter(x.device, "wgrad_dw_floats"), ctypes.addressof(plan), stream,
+        tracing.counter_ptr(x.device, "k7.dw_floats"), ctypes.addressof(plan), stream,
     )
     _build.check(lib, rc, name)
-    depthwise_fma_wgrad.launches += 1
+    tracing.add("launches.depthwise_fma_wgrad")
     depthwise_fma_wgrad.plan = dict(dw_blocks=plan[0], chunk_rows=plan[1])
     return dw
 
@@ -288,17 +261,13 @@ def depthwise_fma_bwd_fused(
     rc = lib.wct_depth_bwd_fused(
         x.data_ptr(), g.data_ptr(), weight.data_ptr(), table.data_ptr(),
         dx.data_ptr(), dw.data_ptr(), b, n, k_vol, c, _DTYPE_CODES[x.dtype],
-        _counter(x.device, "fused_dw_floats"), ctypes.addressof(plan), stream,
+        tracing.counter_ptr(x.device, "k8.dw_floats"), ctypes.addressof(plan), stream,
     )
     _build.check(lib, rc, name)
-    depthwise_fma_bwd_fused.launches += 1
+    tracing.add("launches.depthwise_fma_bwd_fused")
     depthwise_fma_bwd_fused.plan = dict(dw_blocks=plan[0], chunk_rows=plan[1])
     return dx, dw
 
 
-depthwise_fma_fwd.launches = 0
-depthwise_fma_dgrad.launches = 0
-depthwise_fma_wgrad.launches = 0
 depthwise_fma_wgrad.plan = None
-depthwise_fma_bwd_fused.launches = 0
 depthwise_fma_bwd_fused.plan = None

@@ -15,8 +15,9 @@ K4. Ports of ``warpconvnet_tpu/kernels/implicit_gemm.py``:
 A -1 table entry adds exactly zero. Inputs are fp32 or bf16 with fp32
 accumulation; conv outputs and dx come back in the input dtype, dw in fp32.
 Each wrapper runs its CUDA kernel (``csrc/implicit_gemm*.cu``) on CUDA
-tensors and its ``*_plain`` version on CPU tensors, counts its launches in
-``.launches``, and raises on what its kernel does not take.
+tensors and its ``*_plain`` version on CPU tensors, counts its launches
+(``tracing`` host counter ``launches.<wrapper>``), and raises on what its
+kernel does not take.
 
 K2 and K4 take their tiles of ``TILE_ROWS`` rows in a row order of the map
 (``order`` [B, N] int32, a permutation of each scene's rows; None: the
@@ -25,19 +26,24 @@ equal offset masks so that a tile meets few offsets. The order changes
 which rows share a tile, never a result: K2's output has the same bits
 under any order. The plain versions take no order.
 
-The kernels count what they did on the card (:func:`work_counts`): K2's
-and K4's tile work and the floats K3 and K4 add into dw with atomics,
-which :func:`tile_work` and :func:`bwd_fused_dw_atomics` model on the host.
+While recording (``tracing``), the kernels count what they did on the
+card in the registry's device counters: K2's tile work
+(``k2.fwd_tile_work``, ``k2.dgrad_tile_work``), K4's (``k4.tile_work``)
+and the floats K4 and K3 add into dw with atomics (``k4.dw_floats``,
+``k3.dw_floats``), which :func:`tile_work` and
+:func:`bwd_fused_dw_atomics` model on the host; the K2 forward's wrapper
+adds its table's useful pairs (``k2.fwd_pairs``).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -138,7 +144,8 @@ def tile_work(
     offset that has a pair among them, so the work is tile_rows x the
     non-empty (tile, offset) pairs; the useful pairs are the entries >= 0.
     Their ratio is the share of K2's tensor-core work that adds zeros. A
-    host model of the kernels' count (:func:`work_counts`)."""
+    host model of the kernels' count (``tracing`` ``k2.fwd_tile_work``,
+    ``k2.dgrad_tile_work``, ``k4.tile_work``)."""
     b, k, n = table.shape
     valid = table >= 0
     if order is not None:
@@ -152,46 +159,14 @@ def bwd_fused_dw_atomics(
     table: torch.Tensor, c_in: int, c_out: int, chunk_rows: int = DW_ROWS
 ) -> int:
     """Floats that K4's or K3's dw blocks add into dw with atomics on
-    ``table``, a host model of the kernels' counts (:func:`work_counts`
-    ``fused_dw_floats``, ``wgrad_dw_floats``): every (scene, offset, chunk
+    ``table``, a host model of the kernels' counts (``tracing``
+    ``k4.dw_floats``, ``k3.dw_floats``): every (scene, offset, chunk
     of ``chunk_rows`` rows) with a pair flushes its C_in x C_out share of
     dw[k] once. K4's chunks are DW_ROWS rows (fp32: F_DW_ROWS); K3's are
     in ``implicit_gemm_wgrad.plan`` after a launch."""
     b, k, n = table.shape
     valid = torch.nn.functional.pad(table >= 0, (0, (-n) % chunk_rows))
     return int(valid.reshape(b, k, -1, chunk_rows).any(-1).sum()) * c_in * c_out
-
-
-_COUNT_KEYS = ("fwd_tile_work", "dgrad_tile_work", "fused_tile_work", "fused_dw_floats",
-               "wgrad_dw_floats")
-_work_counts: Dict[torch.device, torch.Tensor] = {}
-
-
-def _counter(device: torch.device, key: str) -> int:
-    """Address of ``key``'s int64 counter on ``device`` (the kernels add to it)."""
-    if device not in _work_counts:
-        _work_counts[device] = torch.zeros(len(_COUNT_KEYS), dtype=torch.int64, device=device)
-    return _work_counts[device].data_ptr() + 8 * _COUNT_KEYS.index(key)
-
-
-def work_counts(device) -> Dict[str, int]:
-    """What the kernels did on ``device`` since :func:`reset_work_counts`:
-    the tile work of K2 (``fwd_tile_work``), of K2 as dgrad and of K4's dx
-    (64 rows for each (tile, offset) a tile computed, as :func:`tile_work`
-    counts it), and the floats K4's and K3's dw blocks added into dw
-    (``fused_dw_floats``, ``wgrad_dw_floats``, as
-    :func:`bwd_fused_dw_atomics` counts them). Synchronises."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device(device.type, torch.cuda.current_device())
-    if device not in _work_counts:
-        return dict.fromkeys(_COUNT_KEYS, 0)
-    return dict(zip(_COUNT_KEYS, _work_counts[device].tolist()))
-
-
-def reset_work_counts() -> None:
-    for c in _work_counts.values():
-        c.zero_()
 
 
 def _cuda_args(name, accum_dtype, tensors, table):
@@ -265,7 +240,8 @@ def _launch_fwd(name, x, weight, table, accum_dtype, order, w_trans=False) -> to
         x.data_ptr(), weight.data_ptr(), table.data_ptr(), order_ptr, out.data_ptr(),
         None if img is None else img.data_ptr(), b, n_in, n_out, k_vol, c_in, c_out,
         int(w_trans), _DTYPE_CODES[x.dtype],
-        _counter(x.device, "dgrad_tile_work" if w_trans else "fwd_tile_work"), stream,
+        tracing.counter_ptr(x.device, "k2.dgrad_tile_work" if w_trans else "k2.fwd_tile_work"),
+        stream,
     )
     _build.check(lib, rc, name)
     return out
@@ -283,7 +259,8 @@ def implicit_gemm_fwd(
     if x.device.type == "cpu":
         return implicit_gemm_fwd_plain(x, weight, table, accum_dtype)
     out = _launch_fwd("implicit_gemm_fwd", x, weight, table, accum_dtype, order)
-    implicit_gemm_fwd.launches += 1
+    tracing.add("launches.implicit_gemm_fwd")
+    tracing.device_add("k2.fwd_pairs", lambda: torch.count_nonzero(table >= 0))
     return out
 
 
@@ -295,13 +272,13 @@ def implicit_gemm_dgrad(
     order: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K2 on ``(g, w^T, rev)`` on CUDA tensors, its tiles in ``order`` (rev's
-    output rows, the conv's input rows; counted here, not in
-    ``implicit_gemm_fwd.launches``), :func:`implicit_gemm_dgrad_plain` on
-    CPU tensors."""
+    output rows, the conv's input rows; counted as
+    ``launches.implicit_gemm_dgrad``, not as the forward's launches),
+    :func:`implicit_gemm_dgrad_plain` on CPU tensors."""
     if g.device.type == "cpu":
         return implicit_gemm_dgrad_plain(g, weight, rev, accum_dtype)
     dx = _launch_fwd("implicit_gemm_dgrad", g, weight, rev, accum_dtype, order, w_trans=True)
-    implicit_gemm_dgrad.launches += 1
+    tracing.add("launches.implicit_gemm_dgrad")
     return dx
 
 
@@ -331,10 +308,10 @@ def implicit_gemm_wgrad(
     rc = lib.wct_igemm_wgrad(
         x.data_ptr(), g.data_ptr(), table.data_ptr(), dw.data_ptr(),
         b, n_in, n_out, k_vol, c_in, c_out, _DTYPE_CODES[x.dtype],
-        _counter(x.device, "wgrad_dw_floats"), ctypes.addressof(plan), stream,
+        tracing.counter_ptr(x.device, "k3.dw_floats"), ctypes.addressof(plan), stream,
     )
     _build.check(lib, rc, name)
-    implicit_gemm_wgrad.launches += 1
+    tracing.add("launches.implicit_gemm_wgrad")
     implicit_gemm_wgrad.plan = dict(dw_blocks=plan[0], chunk_rows=plan[1])
     return dw
 
@@ -372,15 +349,12 @@ def implicit_gemm_bwd_fused(
     rc = lib.wct_igemm_bwd_fused(
         x.data_ptr(), g.data_ptr(), weight.data_ptr(), table.data_ptr(), order_ptr,
         dx.data_ptr(), dw.data_ptr(), None if img is None else img.data_ptr(), b, n, k_vol,
-        c_in, c_out, _DTYPE_CODES[x.dtype], _counter(x.device, "fused_tile_work"), stream,
+        c_in, c_out, _DTYPE_CODES[x.dtype], tracing.counter_ptr(x.device, "k4.tile_work"),
+        stream,
     )
     _build.check(lib, rc, name)
-    implicit_gemm_bwd_fused.launches += 1
+    tracing.add("launches.implicit_gemm_bwd_fused")
     return dx, dw
 
 
-implicit_gemm_fwd.launches = 0
-implicit_gemm_dgrad.launches = 0
-implicit_gemm_wgrad.launches = 0
 implicit_gemm_wgrad.plan = None
-implicit_gemm_bwd_fused.launches = 0

@@ -15,8 +15,8 @@ kernel on CUDA tensors, all on the tensor cores, fp32 in 3xTF32
 bf16 in ``csrc/segment_attention_fwd_bf16.cu`` and
 ``csrc/segment_attention_bwd_bf16.cu`` (the forward's entry point is
 ``csrc/segment_attention.cu``), and its ``*_plain`` version on CPU tensors,
-counts its launches in ``.launches``, and raises on what the kernel does not
-take. The kernels read q, k, v and dO through their row strides (no copy).
+counts its launches (``tracing`` host counter ``launches.<wrapper>``), and
+raises on what the kernel does not take. The kernels read q, k, v and dO through their row strides (no copy).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -149,7 +150,7 @@ def segment_attention_fwd(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, name)
-    segment_attention_fwd.launches += 1
+    tracing.add("launches.segment_attention_fwd")
     return (out, lse) if return_lse else out
 
 
@@ -285,7 +286,7 @@ def segment_attention_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, scale=None):
         return segment_attention_bwd_dkv_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale)
     dk, dv = _bwd_launch("segment_attention_bwd_dkv", q, k, v, do, lse, di, seg_q, seg_kv,
                          scale, (k.shape, k.shape))
-    segment_attention_bwd_dkv.launches += 1
+    tracing.add("launches.segment_attention_bwd_dkv")
     return dk, dv
 
 
@@ -297,7 +298,7 @@ def segment_attention_bwd_dq(q, k, v, do, lse, di, seg_q, seg_kv, scale=None):
         return segment_attention_bwd_dq_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale)
     (dq,) = _bwd_launch("segment_attention_bwd_dq", q, k, v, do, lse, di, seg_q, seg_kv, scale,
                         (q.shape,))
-    segment_attention_bwd_dq.launches += 1
+    tracing.add("launches.segment_attention_bwd_dq")
     return dq
 
 
@@ -349,8 +350,3 @@ def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor,
         inside = torch.nn.functional.pad(inside, (0, nkv * KV_TILE - skv))
         visited += int(inside.reshape(b, nkv, KV_TILE).any(dim=2).sum())
     return visited, b * nq * nkv
-
-
-segment_attention_fwd.launches = 0
-segment_attention_bwd_dkv.launches = 0
-segment_attention_bwd_dq.launches = 0

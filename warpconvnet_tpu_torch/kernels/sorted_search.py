@@ -12,19 +12,21 @@ give -1.
 :func:`kernel_map_probe` runs the CUDA kernel (``csrc/sorted_search.cu``) on
 CUDA tensors and :func:`kernel_map_probe_plain` on CPU tensors. The kernel
 takes the offsets grouped by (dx, dy) (:func:`probe_groups`, the port's
-counterpart of the JAX package's ``_yz_group`` for any offsets) and counts,
-per device, its tiles and those whose window of keys did not fit in shared
-memory and were walked in device memory (:func:`probe_tile_counts`).
+counterpart of the JAX package's ``_yz_group`` for any offsets) and, while
+recording, counts in ``tracing``'s device counters its tiles
+(``k1.tiles``) and those whose window of keys did not fit in shared memory
+and were walked in device memory (``k1.wide_tiles``).
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Sequence, Tuple
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import _build
 from warpconvnet_tpu_torch.ops.keys import PAD_COORD, coord_keys
 
@@ -92,32 +94,8 @@ def _group_descriptor(off_bytes: bytes, device: torch.device) -> Tuple[torch.Ten
     lo, hi = (off.min(axis=0), off.max(axis=0)) if len(off) else (np.zeros(3),) * 2
     extent = np.array([lo[0], hi[0], lo[1], hi[1], lo[2], hi[2], 0, 0], np.int32)
     buf = np.concatenate([extent, groups.ravel(), slots.ravel()])
-    return torch.as_tensor(buf, device=device), len(groups)
-
-
-_tile_counts: Dict[torch.device, torch.Tensor] = {}
-
-
-def _counts(device: torch.device) -> torch.Tensor:
-    if device not in _tile_counts:
-        _tile_counts[device] = torch.zeros(2, dtype=torch.int64, device=device)
-    return _tile_counts[device]
-
-
-def probe_tile_counts(device) -> Tuple[int, int]:
-    """(tiles with a valid query, tiles walked in device memory because their
-    window held more keys than shared memory) over K1's launches on
-    ``device`` since :func:`reset_probe_tile_counts`. Synchronises."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device(device.type, torch.cuda.current_device())
-    tiles, wide = _counts(device).tolist()
-    return tiles, wide
-
-
-def reset_probe_tile_counts() -> None:
-    for c in _tile_counts.values():
-        c.zero_()
+    with tracing.span("wcn.sync.group_descriptor"):  # a copy of host data to the card
+        return torch.as_tensor(buf, device=device), len(groups)
 
 
 def kernel_map_probe(
@@ -166,12 +144,8 @@ def kernel_map_probe(
         sorted_keys.data_ptr(), in_num_valid.data_ptr(), n,
         out_coords.data_ptr(), out_num_valid.data_ptr(), m,
         desc.data_ptr(), n_groups, k, st[0], st[1], st[2], b, table.data_ptr(),
-        _counts(dev).data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
+        tracing.counter_ptr(dev, "k1.tiles"), torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, rc, "kernel_map_probe")
-    kernel_map_probe.launches += 1
+    tracing.add("launches.kernel_map_probe")
     return table
-
-
-kernel_map_probe.launches = 0

@@ -15,7 +15,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from warpconvnet_tpu_torch import constants
+from warpconvnet_tpu_torch import constants, tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.nn.modules.norms import BatchNorm
 from warpconvnet_tpu_torch.nn.modules.sparse_conv import SparseConv3d
@@ -146,6 +146,7 @@ class MinkUNetBase(nn.Module):
             x, table = blk(x, table)
         return x, table
 
+    @tracing.spanned("wcn.model.minkunet")
     def forward(self, x: Voxels) -> Voxels:
         caps = self._caps(x.max_num_points)
         out_p1, _ = self.conv0(x)

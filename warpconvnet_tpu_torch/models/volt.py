@@ -21,7 +21,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from warpconvnet_tpu_torch import constants
+from warpconvnet_tpu_torch import constants, tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.nn.functional.sparse_pool import sparse_reduce, sparse_unpool
 from warpconvnet_tpu_torch.nn.modules.attention import Attention, FeedForward
@@ -182,6 +182,7 @@ class Volt(nn.Module):
         self.head = SparseConv3d(stem_dim, out_channels, 1, use_bias=True, device=device,
                                  generator=generator)
 
+    @tracing.spanned("wcn.model.volt")
     def forward(self, vox: Voxels) -> Voxels:
         h, t0 = self.stem1(vox)
         h = h.replace_features(gelu(self.stem1_norm(h.features)))

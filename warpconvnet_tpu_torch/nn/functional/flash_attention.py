@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import segment_attention as k9
 from warpconvnet_tpu_torch.nn.functional.attention import masked_sdpa
 
@@ -44,6 +45,14 @@ def segment_ids_from_groups(
     return seg
 
 
+def attn_detail(q: torch.Tensor, k: torch.Tensor) -> str:
+    """An attention span's detail: ``B S H D dtype`` (S as ``Sq->Skv`` where
+    they differ)."""
+    b, sq, h, d = q.shape
+    s = sq if k.shape[1] == sq else f"{sq}->{k.shape[1]}"
+    return f"{b} {s} {h} {d} {str(q.dtype).replace('torch.', '')}"
+
+
 class SegmentAttention(torch.autograd.Function):
     """Segment attention differentiable in q, k and v. The forward runs K9
     with the rows' log-sum-exp and saves q, k, v, the output and lse; the
@@ -61,8 +70,9 @@ class SegmentAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse, seg_q, seg_kv = ctx.saved_tensors
-        dq, dk, dv = k9.segment_attention_bwd(q, k, v, out, lse, do.contiguous(), seg_q, seg_kv,
-                                              ctx.scale)
+        with tracing.span("wcn.attn.bwd", lambda: attn_detail(q, k)):
+            dq, dk, dv = k9.segment_attention_bwd(q, k, v, out, lse, do.contiguous(), seg_q,
+                                                  seg_kv, ctx.scale)
         return dq, dk, dv, None, None, None
 
 
@@ -81,7 +91,9 @@ def segment_attention(
     ``impl``: None (K9 on CUDA tensors, the plain version on CPU tensors;
     through :class:`SegmentAttention` when a gradient is to be recorded, the
     bare forward otherwise) or ``"xla"`` (:func:`masked_sdpa` over the full
-    pair mask). Returns [B, Sq, H, D] in q's dtype."""
+    pair mask). Returns [B, Sq, H, D] in q's dtype. The kernel path runs in
+    the span ``wcn.attn.fwd[B S H D dtype]``, its backward in
+    ``wcn.attn.bwd[...]``."""
     if seg_kv is None:
         seg_kv = seg_q
     if impl == "xla":
@@ -91,6 +103,7 @@ def segment_attention(
         raise ValueError(f"impl must be None or 'xla', got {impl!r}")
     seg_q = seg_q.to(torch.int32).contiguous()
     seg_kv = seg_kv.to(torch.int32).contiguous()
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return SegmentAttention.apply(q, k, v, seg_q, seg_kv, scale)
-    return k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, scale)
+    with tracing.span("wcn.attn.fwd", lambda: attn_detail(q, k)):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return SegmentAttention.apply(q, k, v, seg_q, seg_kv, scale)
+        return k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, scale)

@@ -38,7 +38,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from warpconvnet_tpu_torch import constants
+from warpconvnet_tpu_torch import constants, tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels, _as3
 from warpconvnet_tpu_torch.kernels import implicit_gemm
 from warpconvnet_tpu_torch.ops.kernel_map import (
@@ -81,11 +81,13 @@ class BatchedPairTable(NamedTuple):
         """Offset slot whose table row is iota; only guaranteed for self-maps."""
         return identity_offset_index(self.offsets) if self.self_map else None
 
+    @tracing.spanned("wcn.map.with_reverse")
     def with_reverse(self, num_in: int) -> "BatchedPairTable":
         if self.rev is not None:
             return self
         return self._replace(rev=reverse_tables(self.table, num_in))
 
+    @tracing.spanned("wcn.map.with_orders")
     def with_orders(self) -> "BatchedPairTable":
         """This map with its row orders (itself if it has them). A
         symmetric self-map's reverse, ``table.flip(1)``, has its rows' masks
@@ -106,6 +108,7 @@ class BatchedPairTable(NamedTuple):
                                 self.rev_order, self.order)
 
 
+@tracing.spanned("wcn.map.build_batched_pair_table")
 def build_batched_pair_table(
     in_coords: torch.Tensor,
     in_num_valid: torch.Tensor,
@@ -129,6 +132,7 @@ def build_batched_pair_table(
     return BatchedPairTable(table, None, offsets, self_map).with_reverse(in_coords.shape[1])
 
 
+@tracing.spanned("wcn.map.generate_output_coords_and_kernel_map")
 def generate_output_coords_and_kernel_map(
     voxels: Voxels,
     kernel_size: Sequence[int] | int,
@@ -168,6 +172,15 @@ def generate_output_coords_and_kernel_map(
     return oc, torch.clamp(num_unique, max=cap), BatchedPairTable(tab, rev, offsets), out_ts
 
 
+def conv_detail(kind: str, stride: int, x: torch.Tensor, weight: torch.Tensor,
+                table: torch.Tensor) -> str:
+    """A conv span's detail: ``kind B N_in->N_out C_in->C_out K stride dtype``."""
+    b, n_in, c_in = x.shape
+    dtype = str(x.dtype).replace("torch.", "")
+    return (f"{kind} {b} {n_in}->{table.shape[2]} {c_in}->{weight.shape[-1]} "
+            f"{table.shape[1]} {stride} {dtype}")
+
+
 class ConvGemm(torch.autograd.Function):
     """The table conv GEMM with its backward kernels (counterpart of the
     ``conv_gemm`` custom_vjp, JAX ``sparse_conv.py:389-472``).
@@ -178,14 +191,17 @@ class ConvGemm(torch.autograd.Function):
     table's rows), K2-dgrad in ``rev_order``. dw comes back in fp32
     (``accum_dtype``) and is cast to the weight's dtype, dx to the
     features' dtype. On CPU tensors every kernel wrapper runs its plain
-    version, through the same routing.
+    version, through the same routing. ``label`` (kind, stride) names the
+    backward's span, ``wcn.conv.bwd[...]``.
     """
 
     @staticmethod
-    def forward(ctx, features, weight, table, rev, offsets, accum_dtype, order, rev_order):
+    def forward(ctx, features, weight, table, rev, offsets, accum_dtype, order, rev_order,
+                label):
         ctx.save_for_backward(features, weight, table, rev, order, rev_order)
         ctx.offsets = offsets
         ctx.accum_dtype = accum_dtype
+        ctx.label = label
         return implicit_gemm.implicit_gemm_fwd(features, weight, table, accum_dtype, order=order)
 
     @staticmethod
@@ -195,20 +211,21 @@ class ConvGemm(torch.autograd.Function):
         g = g.contiguous()
         need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
-        if ctx.offsets is not None:
-            dx, dw = implicit_gemm.implicit_gemm_bwd_fused(
-                features, g, weight, table, ctx.offsets, acc, order=order
-            )
-        else:
-            if need_dx:
-                dx = implicit_gemm.implicit_gemm_dgrad(
-                    g, weight, rev.contiguous(), acc, order=rev_order
+        with tracing.span("wcn.conv.bwd", lambda: conv_detail(*ctx.label, features, weight, table)):
+            if ctx.offsets is not None:
+                dx, dw = implicit_gemm.implicit_gemm_bwd_fused(
+                    features, g, weight, table, ctx.offsets, acc, order=order
                 )
-            if need_dw:
-                dw = implicit_gemm.implicit_gemm_wgrad(features, g, table, acc)
+            else:
+                if need_dx:
+                    dx = implicit_gemm.implicit_gemm_dgrad(
+                        g, weight, rev.contiguous(), acc, order=rev_order
+                    )
+                if need_dw:
+                    dw = implicit_gemm.implicit_gemm_wgrad(features, g, table, acc)
         dx = dx.to(features.dtype) if need_dx else None
         dw = dw.to(weight.dtype) if need_dw else None
-        return dx, dw, None, None, None, None, None, None
+        return dx, dw, None, None, None, None, None, None, None
 
 
 def conv_gemm(
@@ -216,20 +233,28 @@ def conv_gemm(
     weight: torch.Tensor,  # [K, C_in, C_out], contiguous
     table: BatchedPairTable,
     accum_dtype: torch.dtype = torch.float32,
+    label: Optional[Tuple[str, int]] = None,
 ) -> torch.Tensor:
     """[B, N_out, C_out] in features' dtype, differentiable in features and
     weight through :class:`ConvGemm`; the map picks the backward route.
     With no gradient to record (inference mode, ``no_grad``, or neither
-    input requiring one) K2 runs without the Function's overhead."""
+    input requiring one) K2 runs without the Function's overhead. The
+    forward runs in the span ``wcn.conv.fwd[...]``, named by ``label``
+    (kind, stride; default ``sub`` for a self-map, else ``onto``, stride 1)."""
     tab = table.table.contiguous()
     order, rev_order = table.order, table.rev_order
-    if not (torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad)):
-        return implicit_gemm.implicit_gemm_fwd(features, weight, tab, accum_dtype, order=order)
-    if table.symmetric_self_map:
-        return ConvGemm.apply(features, weight, tab, None, table.offsets, accum_dtype, order, None)
-    if table.rev is None:
-        raise ValueError("the backward of a map that is not a symmetric self-map needs rev")
-    return ConvGemm.apply(features, weight, tab, table.rev, None, accum_dtype, order, rev_order)
+    label = label or ("sub" if table.self_map else "onto", 1)
+    with tracing.span("wcn.conv.fwd", lambda: conv_detail(*label, features, weight, tab)):
+        if not (torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad)):
+            return implicit_gemm.implicit_gemm_fwd(features, weight, tab, accum_dtype,
+                                                   order=order)
+        if table.symmetric_self_map:
+            return ConvGemm.apply(features, weight, tab, None, table.offsets, accum_dtype, order,
+                                  None, label)
+        if table.rev is None:
+            raise ValueError("the backward of a map that is not a symmetric self-map needs rev")
+        return ConvGemm.apply(features, weight, tab, table.rev, None, accum_dtype, order,
+                              rev_order, label)
 
 
 def block_diagonal(weight: torch.Tensor) -> torch.Tensor:
@@ -307,7 +332,10 @@ def spatially_sparse_conv(
     else:
         out_sorted = voxels.lex_sorted
 
-    out_feats = conv_gemm(features.contiguous(), weight.contiguous(), table, acc)
+    kind = "up" if transposed else "down" if any(s != 1 for s in st) else (
+        "sub" if table.self_map else "onto")
+    out_feats = conv_gemm(features.contiguous(), weight.contiguous(), table, acc,
+                          label=(kind, max(st)))
     if bias is not None:
         out_feats = out_feats + bias
     row_valid = torch.arange(oc.shape[1], device=oc.device)[None, :] < onv[:, None]

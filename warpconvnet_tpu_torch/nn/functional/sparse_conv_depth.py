@@ -20,11 +20,12 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from warpconvnet_tpu_torch import constants
+from warpconvnet_tpu_torch import constants, tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels, _as3
 from warpconvnet_tpu_torch.kernels import depthwise_fma
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
     BatchedPairTable,
+    conv_detail,
     generate_output_coords_and_kernel_map,
 )
 
@@ -37,14 +38,16 @@ class DepthwiseFma(torch.autograd.Function):
     self-map, whose reverse is ``table.flip(1)``); otherwise K6 as dgrad
     through ``rev`` and K7. dw comes back in fp32 and is cast to the
     weight's dtype, dx to the features' dtype. On CPU tensors every kernel
-    wrapper runs its plain version, through the same routing.
+    wrapper runs its plain version, through the same routing. ``label``
+    (kind, stride) names the backward's span, ``wcn.conv.bwd[dw-...]``.
     """
 
     @staticmethod
-    def forward(ctx, features, weight, table, rev, offsets, accum_dtype):
+    def forward(ctx, features, weight, table, rev, offsets, accum_dtype, label):
         ctx.save_for_backward(features, weight, table, rev)
         ctx.offsets = offsets
         ctx.accum_dtype = accum_dtype
+        ctx.label = label
         return depthwise_fma.depthwise_fma_fwd(features, weight, table, accum_dtype)
 
     @staticmethod
@@ -54,18 +57,19 @@ class DepthwiseFma(torch.autograd.Function):
         g = g.contiguous()
         need_dx, need_dw = ctx.needs_input_grad[:2]
         dx = dw = None
-        if ctx.offsets is not None:
-            dx, dw = depthwise_fma.depthwise_fma_bwd_fused(
-                features, g, weight, table, ctx.offsets, acc
-            )
-        else:
-            if need_dx:
-                dx = depthwise_fma.depthwise_fma_dgrad(g, weight, rev.contiguous(), acc)
-            if need_dw:
-                dw = depthwise_fma.depthwise_fma_wgrad(features, g, table, acc)
+        with tracing.span("wcn.conv.bwd", lambda: conv_detail(*ctx.label, features, weight, table)):
+            if ctx.offsets is not None:
+                dx, dw = depthwise_fma.depthwise_fma_bwd_fused(
+                    features, g, weight, table, ctx.offsets, acc
+                )
+            else:
+                if need_dx:
+                    dx = depthwise_fma.depthwise_fma_dgrad(g, weight, rev.contiguous(), acc)
+                if need_dw:
+                    dw = depthwise_fma.depthwise_fma_wgrad(features, g, table, acc)
         dx = dx.to(features.dtype) if need_dx else None
         dw = dw.to(weight.dtype) if need_dw else None
-        return dx, dw, None, None, None, None
+        return dx, dw, None, None, None, None, None
 
 
 def depthwise_conv(
@@ -73,20 +77,27 @@ def depthwise_conv(
     weight: torch.Tensor,  # [K, C]
     table: BatchedPairTable,
     accum_dtype: torch.dtype = torch.float32,
+    label: Optional[Tuple[str, int]] = None,
 ) -> torch.Tensor:
     """[B, N_out, C] in features' dtype, differentiable in features and
     weight through :class:`DepthwiseFma`; the map picks the backward route.
-    With no gradient to record K6 runs without the Function's overhead."""
+    With no gradient to record K6 runs without the Function's overhead.
+    The forward runs in the span ``wcn.conv.fwd[dw-...]``, named by
+    ``label`` (kind, stride; default ``dw-sub`` for a self-map, else
+    ``dw-onto``, stride 1)."""
     features = features.contiguous()
     weight = weight.to(accum_dtype).contiguous()
     tab = table.table.contiguous()
-    if not (torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad)):
-        return depthwise_fma.depthwise_fma_fwd(features, weight, tab, accum_dtype)
-    if table.symmetric_self_map:
-        return DepthwiseFma.apply(features, weight, tab, None, table.offsets, accum_dtype)
-    if table.rev is None:
-        raise ValueError("the backward of a map that is not a symmetric self-map needs rev")
-    return DepthwiseFma.apply(features, weight, tab, table.rev, None, accum_dtype)
+    label = label or ("dw-sub" if table.self_map else "dw-onto", 1)
+    with tracing.span("wcn.conv.fwd", lambda: conv_detail(*label, features, weight, tab)):
+        if not (torch.is_grad_enabled() and (features.requires_grad or weight.requires_grad)):
+            return depthwise_fma.depthwise_fma_fwd(features, weight, tab, accum_dtype)
+        if table.symmetric_self_map:
+            return DepthwiseFma.apply(features, weight, tab, None, table.offsets, accum_dtype,
+                                      label)
+        if table.rev is None:
+            raise ValueError("the backward of a map that is not a symmetric self-map needs rev")
+        return DepthwiseFma.apply(features, weight, tab, table.rev, None, accum_dtype, label)
 
 
 def spatially_sparse_depthwise_conv(
@@ -123,7 +134,9 @@ def spatially_sparse_depthwise_conv(
     else:
         out_sorted = voxels.lex_sorted
 
-    out_feats = depthwise_conv(voxels.features, weight, table, constants.accum_dtype())
+    kind = "dw-down" if any(s != 1 for s in st) else "dw-sub" if table.self_map else "dw-onto"
+    out_feats = depthwise_conv(voxels.features, weight, table, constants.accum_dtype(),
+                               label=(kind, max(st)))
     if bias is not None:
         out_feats = out_feats + bias
     row_valid = torch.arange(oc.shape[1], device=oc.device)[None, :] < onv[:, None]

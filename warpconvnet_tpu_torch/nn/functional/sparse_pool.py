@@ -14,6 +14,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels, _as3
 from warpconvnet_tpu_torch.kernels.implicit_gemm import _gather_rows
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
@@ -79,6 +80,17 @@ def sparse_avg_pool(voxels, kernel_size, stride=None, out_capacity=None):
     return sparse_reduce(voxels, kernel_size, stride, "mean", out_capacity)
 
 
+@tracing.spanned("wcn.map.unpool_parents")
+def unpool_parents(rev: torch.Tensor) -> torch.Tensor:
+    """[B, K, N_fine] reverse table -> [B, N_fine]: each fine row's coarse
+    parent, from its last offset with an entry (as the JAX scan lets the
+    last write win), or -1."""
+    k_ids = torch.arange(rev.shape[1], device=rev.device)[None, :, None]
+    k_last = torch.where(rev >= 0, k_ids, -1).amax(dim=1)  # [B, N_fine]
+    parent = torch.gather(rev, 1, k_last.clamp(min=0)[:, None]).squeeze(1)
+    return torch.where(k_last >= 0, parent, -1)
+
+
 def sparse_unpool(
     coarse: Voxels,
     fine_coords_voxels: Voxels,
@@ -90,11 +102,7 @@ def sparse_unpool(
     several entries the last offset's wins, as in the JAX scan. With
     ``concat_features`` the result is ``[concat_features, unpooled]`` on the
     channel axis. Pad rows are zero."""
-    rev = table.rev  # [B, K, N_fine]
-    k_ids = torch.arange(rev.shape[1], device=rev.device)[None, :, None]
-    k_last = torch.where(rev >= 0, k_ids, -1).amax(dim=1)  # [B, N_fine]
-    parent = torch.gather(rev, 1, k_last.clamp(min=0)[:, None]).squeeze(1)
-    out = _gather_rows(coarse.features, torch.where(k_last >= 0, parent, -1))
+    out = _gather_rows(coarse.features, unpool_parents(table.rev))
     if concat_features is not None:
         out = torch.cat([concat_features, out], dim=-1)
     out = torch.where(fine_coords_voxels.valid_mask()[..., None], out, 0)

@@ -5,6 +5,9 @@ k and output row o, the input row i with
 ``in_coords[i] == stride * out_coords[o] + offsets[k]``, or -1. Its reverse
 ``rev[B, K, N_in]`` exists because the map o -> i is injective per offset,
 and serves transposed convs.
+
+Each builder runs in a span ``wcn.map.<function>`` (``tracing``), and each
+copy of host data to the card in a span ``wcn.sync.<function>``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import sorted_search
 from warpconvnet_tpu_torch.ops.keys import PAD_COORD, argsort_keys, coord_keys
 
@@ -49,6 +53,7 @@ def identity_offset_index(offsets: np.ndarray) -> Optional[int]:
     return int(hits[0]) if hits.size else None
 
 
+@tracing.spanned("wcn.map.reverse_tables")
 def reverse_tables(table: torch.Tensor, num_in: int) -> torch.Tensor:
     """table [B, K, N_out] -> rev [B, K, N_in]: the output row per (offset,
     input row), or -1. One scatter; entries are unique per (b, k)."""
@@ -64,6 +69,7 @@ MASK_BITS = 62  # offsets that enter a row's order key
 _mask_bits = {}  # (offsets, dtype, device) -> [offsets] powers of two
 
 
+@tracing.spanned("wcn.map.row_order")
 def row_order(table: torch.Tensor) -> torch.Tensor:
     """[B, K, N] table -> [B, N] int32: each scene's rows ordered by their
     offset mask (bit k set where ``table[b, k, row] >= 0``), the order in
@@ -97,6 +103,7 @@ class PairTable(NamedTuple):
         return PairTable(rev, -np.asarray(self.offsets), self.table.shape[1])
 
 
+@tracing.spanned("wcn.map.build_pair_tables_batched")
 def build_pair_tables_batched(
     in_coords: torch.Tensor,  # [B, N, 3] int32
     in_num_valid: torch.Tensor,  # [B]
@@ -152,10 +159,13 @@ def _parity_k_index(coords: torch.Tensor, kernel_size: Tuple[int, int, int]) -> 
     """Offset slot of each row under the x-major enumeration, from the
     floor-mod residue of its coordinate."""
     kx, ky, kz = kernel_size
-    r = torch.remainder(coords, torch.as_tensor(kernel_size, device=coords.device))
+    with tracing.span("wcn.sync.parity_k_index"):  # a copy of host data to the card
+        ks = torch.as_tensor(kernel_size, device=coords.device)
+    r = torch.remainder(coords, ks)
     return r[..., 0] * (ky * kz) + r[..., 1] * kz + r[..., 2]
 
 
+@tracing.spanned("wcn.map.parity_pair_tables_from_unique")
 def parity_pair_tables_from_unique(
     coords: torch.Tensor,  # [B, N, 3] int32, fine side
     valid: torch.Tensor,  # [B, N] bool
@@ -182,6 +192,7 @@ def parity_pair_tables_from_unique(
     return table, rev
 
 
+@tracing.spanned("wcn.map.parity_strided_unique")
 def parity_strided_unique(
     coords: torch.Tensor,  # [B, N, 3] int32
     num_valid: torch.Tensor,  # [B]
@@ -196,7 +207,8 @@ def parity_strided_unique(
     if not all(k > 0 and (k & (k - 1)) == 0 for k in ks):
         raise ValueError(f"parity_strided_unique: power-of-two strides only, got {ks}")
     dev = coords.device
-    shifts = torch.as_tensor([k.bit_length() - 1 for k in ks], dtype=torch.int32, device=dev)
+    with tracing.span("wcn.sync.parity_strided_unique"):  # a copy of host data to the card
+        shifts = torch.as_tensor([k.bit_length() - 1 for k in ks], dtype=torch.int32, device=dev)
     valid = torch.arange(n, device=dev)[None, :] < num_valid[:, None]
     cdiv = torch.where(valid[..., None], coords.to(torch.int32) >> shifts, PAD_COORD)
     sk, pay = argsort_keys(coord_keys(cdiv))

@@ -16,6 +16,7 @@ from typing import Callable, Dict, Tuple
 import torch
 from torch import nn
 
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels
 
 
@@ -42,17 +43,24 @@ def make_segmentation_train_step(
     the model's device). Labels are [B, N]; pad rows are ignored through the
     validity mask. ``optimizer`` holds ``model``'s parameters, e.g.
     ``torch.optim.Adam(model.parameters(), lr=1e-3)``, which applies the
-    ``optax.adam(1e-3)`` update."""
+    ``optax.adam(1e-3)`` update. A step runs in the span ``wcn.train_step``,
+    its phases in ``wcn.train_step.forward``, ``.loss``, ``.backward`` and
+    ``.optimizer`` (``tracing``)."""
 
     def step(voxels: Voxels, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits = model(voxels).features
-        if logits.shape[-1] != num_classes:
-            raise ValueError(f"model gives {logits.shape[-1]} classes, want {num_classes}")
-        loss, acc = masked_cross_entropy(logits, labels, voxels.valid_mask())
-        loss.backward()
-        optimizer.step()
-        return {"loss": loss.detach(), "acc": acc.detach()}
+        with tracing.span("wcn.train_step"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with tracing.span("wcn.train_step.forward"):
+                logits = model(voxels).features
+            if logits.shape[-1] != num_classes:
+                raise ValueError(f"model gives {logits.shape[-1]} classes, want {num_classes}")
+            with tracing.span("wcn.train_step.loss"):
+                loss, acc = masked_cross_entropy(logits, labels, voxels.valid_mask())
+            with tracing.span("wcn.train_step.backward"):
+                loss.backward()
+            with tracing.span("wcn.train_step.optimizer"):
+                optimizer.step()
+            return {"loss": loss.detach(), "acc": acc.detach()}
 
     return step
