@@ -67,7 +67,9 @@ Phases (any failure exits non-zero):
      Skv 40960) and D 16; each against its plain version, timed, with the
      share of kv tiles visited and one scaled_dot_product_attention per
      scene on its valid rows as the library yardstick; fp32 at the trunk
-     shape also against a float64 plain forward (out and lse).
+     shape also against a float64 plain forward (out and lse); each fp32
+     case with its scratch bytes, the kv rows split (once each) and the
+     rows its blocks copied in, and their ratio, the reuse of each split.
  13. volt: Volt-s (3 -> 20 classes, dim 384, 6 heads, depth 12, bf16 conv
      compute, fp32 parameters, seeded weights, eval mode, token capacity
      40960) answers 3 requests, each a fresh bench scene pair whose maps
@@ -1328,6 +1330,25 @@ def k9_fp64_errors(k9, q, k, v, seg_q, seg_kv):
                 plain_out=rel(plain[0], o64), plain_lse=rel(plain[1][finite], lse64[finite]))
 
 
+def k9_split_reuse(k9, q, k, v, seg_q, seg_kv):
+    """One fp32 K9 call's scratch bytes, the kv rows it split and its
+    blocks copied in (``tracing`` ``k9.fwd_split_rows``,
+    ``k9.fwd_staged_rows``) and their ratio, the reuse of each split;
+    checks that each kv row of each head was split once."""
+    from warpconvnet_tpu_torch import tracing
+    from warpconvnet_tpu_torch.kernels import _build
+
+    b, skv, h, d = k.shape
+    rows0 = tracing.counters().get("k9.fwd_split_rows", 0)
+    with device_counts("cuda") as gained:
+        k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+    rows = tracing.counters()["k9.fwd_split_rows"] - rows0
+    check(rows == b * h * skv, f"K9: split {rows} kv rows, not B H Skv = {b * h * skv}")
+    staged = gained["k9.fwd_staged_rows"]
+    return dict(scratch_bytes=k9.split_scratch(_build.load_library(), b, skv, h, d)[1],
+                split_rows=rows, staged_rows=staged, split_reuse=staged / rows)
+
+
 def phase_k9(tokens):
     """K9 against its plain version at Volt-s's trunk shape (validity from
     the real token counts ``tokens``), fp32 and bf16, and on a grouped
@@ -1382,6 +1403,7 @@ def phase_k9(tokens):
                     f"{fp64['plain_lse']:.3e}; bounds {K9_FP64_TOL})")
                 check(all(fp64[key] <= bound for key, bound in K9_FP64_TOL.items()),
                       f"K9 {name} fp32: {fp64} against float64, bounds {K9_FP64_TOL}")
+            split = k9_split_reuse(k9, q, k, v, seg_q, seg_kv) if dtype == torch.float32 else None
             fast = dtype == torch.bfloat16 or dd == 16 or name != "global"
             ms = cuda_ms(lambda: k9.segment_attention_fwd(q, k, v, seg_q, seg_kv),
                          iters=10 if fast else 3, warmup=1)
@@ -1395,11 +1417,12 @@ def phase_k9(tokens):
                 f"{err:.3e}, max_abs_err {max_abs:.3e}; kernel {ms:.4f} ms "
                 f"({flops / ms / 1e9:.2f} TFLOP/s on {pairs} equal-segment pairs), plain "
                 f"{plain_ms:.4f} ms, sdpa {lib_txt}, bound {bd[0]:.4f} ms ({bd[1]}); kv tiles "
-                f"visited {visited}/{tiles} ({visited / tiles:.2%}); card {card_state()}")
+                f"visited {visited}/{tiles} ({visited / tiles:.2%}); split {split}; card "
+                f"{card_state()}")
             if name == "global":
                 res = dict(max_abs_err=max_abs, rel_err=err, ms=ms, plain_ms=plain_ms,
                            bound_ms=bd[0], bound_by=bd[1], library_ms=lib_ms,
-                           kv_tiles_visited=visited / tiles)
+                           kv_tiles_visited=visited / tiles, **(split or {}))
                 if dtype == torch.float32:
                     entry = dict(
                         name="segment_attention_fwd", route="cuda",

@@ -963,11 +963,12 @@ def test_k9_bwd_gives_the_same_bits_twice(cuda, layout, dtype):
 
 # fp32 K9 (3xTF32 on the tensor cores) against a float64 plain forward on
 # the same inputs: relative Frobenius error of out, and of lse over the rows
-# that match something. On an H100 the kernel read out 2.6e-7 to 3.1e-6
-# and lse 6.0e-8 to 5.1e-7 (D 16-128; the layouts below), the IEEE fp32
-# plain forward 1.7e-7 to 2.0e-6 and 3.0e-8 to 8.4e-8, a forward of single
-# TF32 products (tf32_matmul(terms=1)) 4.8e-4 to 9.1e-4 and 1.2e-5 to
-# 9.3e-5. Each bound sits 4x above the kernel's largest reading, out's 40x
+# that match something. On an H100 the kernel read out 2.7e-7 to 3.2e-6
+# and lse 6.0e-8 to 5.0e-7 (D 16-128; the layouts below; with 32-row kv
+# steps 2.6e-7 to 3.1e-6 and 6.0e-8 to 5.1e-7), the IEEE fp32 plain
+# forward 1.7e-7 to 2.0e-6 and 3.0e-8 to 8.4e-8, a forward of single TF32
+# products (tf32_matmul(terms=1)) 4.8e-4 to 9.1e-4 and 1.2e-5 to 9.3e-5.
+# Each bound sits about 4x above the kernel's largest reading, out's 40x
 # and lse's 6x below the 1xTF32 forward's smallest. A kernel whose tensor
 # cores carry out over the whole walk read out 5.2e-5 to 5.8e-5 on the
 # "long" layout (D 16-128).
@@ -1082,6 +1083,107 @@ def test_k9_gives_the_same_bits_twice(cuda, layout, dtype):
     second = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def _rel64(x, r):
+    return float((x.double() - r).norm() / r.norm())
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("skv", [4097, 40959])
+def test_k9_fp32_takes_kv_lengths_off_its_step(cuda, skv, d):
+    """fp32 K9 where Skv is not a multiple of its kv step (nor of a kv
+    tile): the last step's rows past Skv are padding in the split scratch.
+    Self-attention at 4097 rows, cross attention of 300 query rows over
+    40959; three kv segments, the last 5 kv rows in none the queries have.
+    Against the plain forward (K9_TOL) and a float64 one (K9_FP64_TOL)."""
+    gen = torch.Generator(device=cuda).manual_seed(skv + d)
+    sq = skv if skv < 10000 else 300
+    seg_kv = (torch.arange(skv, device=cuda) * 3 // skv).to(torch.int32)
+    seg_kv[-5:] = 9
+    seg_kv = seg_kv.repeat(2, 1)
+    seg_q = seg_kv.clone() if sq == skv else torch.sort(
+        torch.randint(0, 3, (2, sq), generator=gen, device=cuda, dtype=torch.int32))[0]
+    q = torch.randn((2, sq, 2, d), generator=gen, device=cuda) * 2
+    k, v = (torch.randn((2, skv, 2, d), generator=gen, device=cuda) for _ in "kv")
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    ref = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv)
+    o64, lse64 = k9.segment_attention_fwd_plain(q.double(), k.double(), v.double(), seg_q,
+                                                seg_kv, chunk=256, return_lse=True)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, **K9_TOL[torch.float32])
+    finite = torch.isfinite(lse64)
+    assert torch.equal(torch.isfinite(lse), finite)
+    assert _rel64(out, o64) <= K9_FP64_TOL["out"]
+    assert _rel64(lse[finite], lse64[finite]) <= K9_FP64_TOL["lse"]
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_k9_fp32_walks_every_tile_when_ranges_span_all(cuda, d):
+    """The range skip's worst case: every 7th query row has a far segment
+    id, in turn below and above every other (-1, which the first 40 kv rows
+    share, and 1000, which the last 40 share), so every query tile's
+    [min, max] range spans every kv tile and almost every step is masked.
+    fp32 K9 against the plain forward, and every kv tile is visited."""
+    s = 600
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    seg = (torch.arange(s, device=cuda) // 24).to(torch.int32).repeat(2, 1)
+    seg_q, seg_kv = seg.clone(), seg.clone()
+    seg_q[:, ::14], seg_q[:, 7::14] = -1, 1000
+    seg_kv[:, :40], seg_kv[:, -40:] = -1, 1000
+    q = torch.randn((2, s, 2, d), generator=gen, device=cuda) * 2
+    k, v = (torch.randn((2, s, 2, d), generator=gen, device=cuda) for _ in "kv")
+    got = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+    ref = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref, **K9_TOL[torch.float32])
+    visited, tiles = k9.kv_tiles_visited(seg_q, seg_kv, k9.query_tile(torch.float32, d))
+    assert visited == tiles
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "cross", "long"])
+def test_k9_fp32_splits_each_kv_row_once(cuda, layout, d):
+    """fp32 K9 splits each kv row of each head once a call (host counter
+    ``k9.fwd_split_rows`` = B H Skv), and its blocks copy in the rows of
+    every step they visit (device counter ``k9.fwd_staged_rows`` = heads x
+    ``kv_rows_staged`` at the kernel's query tile and kv step), only while
+    recording. bf16 K9 counts neither."""
+    q, k, v, _, seg_q, seg_kv = _k9_bwd_case(cuda, layout, torch.float32, d)
+    b, skv, h = k.shape[0], k.shape[1], k.shape[2]
+    tracing.reset_counters()
+    with tracing.recording():
+        k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+    got = tracing.counters(cuda)
+    want = h * k9.kv_rows_staged(seg_q, seg_kv, k9.query_tile(torch.float32, d),
+                                 k9.kv_step(torch.float32, d))
+    assert got["k9.fwd_split_rows"] == b * h * skv
+    assert got["k9.fwd_staged_rows"] == want > 0
+    tracing.reset_counters()
+    k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+    k9.segment_attention_fwd(q.to(torch.bfloat16), k.to(torch.bfloat16), v.to(torch.bfloat16),
+                             seg_q, seg_kv)
+    got = tracing.counters(cuda)
+    assert got["k9.fwd_split_rows"] == b * h * skv
+    assert got["k9.fwd_staged_rows"] == 0
+
+
+def test_k9_fp32_runs_scene_passes_through_bounded_scratch(cuda, monkeypatch):
+    """With room for one scene's split rows, fp32 K9 runs a pass a scene
+    through the same scratch and gives the bits of one pass over all."""
+    q, k, v, _, seg_q, seg_kv = _k9_bwd_case(cuda, "grouped", torch.float32, 64)
+    q, k, v = (torch.cat([t, t.flip(0)]) for t in (q, k, v))
+    seg_q, seg_kv = torch.cat([seg_q, seg_q]), torch.cat([seg_kv, seg_kv])
+    whole = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    lib = k9._build.load_library()
+    one = k9.split_scratch(lib, 1, k.shape[1], k.shape[2], 64)[1]
+    assert k9.split_scratch(lib, 4, k.shape[1], k.shape[2], 64) == (4, 4 * one)
+    monkeypatch.setattr(k9, "SPLIT_SCRATCH_BYTES", one)
+    assert k9.split_scratch(lib, 4, k.shape[1], k.shape[2], 64) == (1, one)
+    passes = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, passes):
         assert torch.equal(a, b)
 
 

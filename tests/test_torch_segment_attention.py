@@ -190,3 +190,26 @@ def test_kv_tiles_visited_follows_the_segment_ranges():
     # Query tiles: rows 0-127 valid, 128-255 mixed, 256-299 pad; kv tiles
     # 0-2 valid, 3 mixed, 4 pad: 4 + 5 + 2 visits.
     assert k9.kv_tiles_visited(valid, valid) == (11, 15)
+
+
+@pytest.mark.parametrize("dtype,d,qt,step", [
+    (torch.float32, 16, 128, 64), (torch.float32, 64, 128, 64), (torch.float32, 128, 64, 32),
+    (torch.bfloat16, 64, 192, 64), (torch.bfloat16, 128, 128, 64)])
+def test_query_tile_and_kv_step_follow_the_kernels(dtype, d, qt, step):
+    """The forward's query rows a block and kv rows a step: fp32 takes
+    whole 64-row kv tiles but 32-row steps at D 128, bf16 whole tiles."""
+    assert (k9.query_tile(dtype, d), k9.kv_step(dtype, d)) == (qt, step)
+
+
+def test_kv_rows_staged_counts_each_visited_step():
+    """A visited tile stages its steps of ``step`` rows, pad rows included,
+    and skips a step wholly past Skv: Skv 4097 (tiles 0-63 whole, tile 64
+    one row) in one segment, every query tile visits all 65 tiles."""
+    seg = torch.zeros((1, 4097), dtype=torch.int32)
+    assert k9.kv_tiles_visited(seg, seg) == (33 * 65, 33 * 65)
+    assert k9.kv_rows_staged(seg, seg, 128, 64) == 33 * 65 * 64
+    assert k9.kv_rows_staged(seg, seg, 64, 32) == 65 * (64 * 64 + 32)
+    # Aligned 64-row segments: each query tile its own two tiles.
+    seg = torch.arange(256, dtype=torch.int32).reshape(1, 256) // 64
+    assert k9.kv_rows_staged(seg, seg, 128, 64) == 4 * 64
+    assert k9.kv_rows_staged(seg, seg, 64, 32) == 4 * 64

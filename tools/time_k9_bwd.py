@@ -16,7 +16,8 @@ Inputs come from a seeded generator on the card, dO is zero on pad rows.
 
 Prints the card's name and power limit, then one JSON line per tree: per
 layout, the mean CUDA-event time of each kernel (K9 with lse, as training
-runs it), the relative Frobenius error of dq, dk and dv against the plain
+runs it), with ``--dtype fp32`` K9's scratch bytes and the reuse of each
+kv row it split (rows its blocks copied in over rows split), the relative Frobenius error of dq, dk and dv against the plain
 backward (with ``--dtype fp32`` also of out, lse, dq, dk and dv against a
 float64 plain forward and backward of float64 inputs, beside the fp32
 plain versions'), and SHA-1s of out and lse and of the gradients' bytes
@@ -56,6 +57,25 @@ def digest(torch, *tensors):
     return h.hexdigest()
 
 
+def split_reuse(torch, k9, q, k, v, seg):
+    """The fp32 forward's scratch bytes, the kv rows it split and its
+    blocks copied in (``tracing`` counters ``k9.fwd_split_rows``,
+    ``k9.fwd_staged_rows``) and their ratio, the reuse of each split; None
+    for a tree without them."""
+    from warpconvnet_tpu_torch import tracing
+
+    if not hasattr(k9, "split_scratch"):
+        return dict(scratch_bytes=None, split_rows=None, staged_rows=None, split_reuse=None)
+    b, skv, h, d = k.shape
+    tracing.reset_counters()
+    with tracing.recording():
+        k9.segment_attention_fwd(q, k, v, seg, seg, return_lse=True)
+    got = tracing.counters(q.device)
+    split, staged = got["k9.fwd_split_rows"], got["k9.fwd_staged_rows"]
+    return dict(scratch_bytes=k9.split_scratch(k9._build.load_library(), b, skv, h, d)[1],
+                split_rows=split, staged_rows=staged, split_reuse=staged / split)
+
+
 def run_tree(tree, dtype_name, forward_only):
     sys.path.insert(0, os.path.abspath(tree))
     import torch
@@ -83,6 +103,8 @@ def run_tree(tree, dtype_name, forward_only):
         fwd_ms = cuda_ms(torch, lambda: k9.segment_attention_fwd(q, k, v, seg, seg,
                                                                   return_lse=True), n)
         case = dict(layout=name, heads=h, d=d, fwd_ms=fwd_ms, fwd_sha1=digest(torch, out, lse))
+        if dtype == torch.float32:
+            case.update(split_reuse(torch, k9, q, k, v, seg))
         if dtype == torch.float32:
             x64 = [t.double() for t in (q, k, v)]
             o64, lse64 = k9.segment_attention_fwd_plain(*x64, seg, seg, chunk=512,

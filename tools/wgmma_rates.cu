@@ -24,7 +24,8 @@ enum Kind {
   BF16_RS_MNMAJOR,  // P V: m64n64k16 x 4, B MN-major
   TF32_SS_N32,      // fp32 S, both operands in shared memory: m64n32k8 x 24
   TF32_RS_N32,      // fp32 S, Q from registers: m64n32k8 x 24
-  TF32_RS_N64,      // fp32 P V: m64n64k8 x 12
+  TF32_RS_N64,      // fp32 P V at 32-row steps: m64n64k8 x 12
+  TF32_RS_N64_S,    // fp32 S at 64-row steps, Q from registers: m64n64k8 x 24
 };
 
 template <Kind KIND, int NWG>
@@ -54,8 +55,10 @@ __global__ void __launch_bounds__(NWG * 128, 1) rates(float* out) {
                       Tile<64, 4, 32>::k_major(tb, k % 8), 1);
     } else if constexpr (KIND == TF32_RS_N32) {
       for (int k = 0; k < 24; ++k) wgmma_tf32_rs(d16, a, Tile<64, 4, 32>::k_major(tb, k % 8));
-    } else {
+    } else if constexpr (KIND == TF32_RS_N64) {
       for (int k = 0; k < 12; ++k) wgmma_tf32_rs(d, a, Tile<32, 4, 64>::k_major(tb, k % 4));
+    } else {
+      for (int k = 0; k < 24; ++k) wgmma_tf32_rs(d, a, Tile<64, 4>::k_major(tb, k % 8));
     }
     wg_commit();
     wg_wait<0>();
@@ -102,5 +105,6 @@ int main() {
   run<TF32_SS_N32, 2>("tf32 SS m64n32k8 x24", t32);
   run<TF32_RS_N32, 2>("tf32 RS m64n32k8 x24", t32);
   run<TF32_RS_N64, 2>("tf32 RS m64n64k8 x12", t64);
+  run<TF32_RS_N64_S, 2>("tf32 RS m64n64k8 x24 (S, 64 rows)", 2 * t64);
   return 0;
 }

@@ -1,7 +1,7 @@
 // Hopper device helpers of the segment-attention kernels (K9 in
 // segment_attention_fwd_{tf32,bf16}.cu, K9-dkv and K9-dq in
-// segment_attention_bwd_{tf32,bf16}.cu): cp.async copies, the visited-tile
-// walk, mbarriers, bf16 packing and TF32 splitting, and Hopper's wgmma
+// segment_attention_bwd_{tf32,bf16}.cu): cp.async and bulk copies, the
+// visited-tile walk, mbarriers, bf16 packing and TF32 splitting, and Hopper's wgmma
 // (bf16 and tf32) with the swizzled shared-memory tiles it reads.
 #pragma once
 
@@ -108,6 +108,27 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, unsigned parity) {
 // have landed (counted among the phase's arrivals).
 __device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// mbarrier: this thread's arrival, announcing `bytes` of transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16) global -> shared by the copy engine in one
+// request (a TMA bulk copy, no tensor map), completing as transactions on
+// the mbarrier.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// Makes initialised mbarriers visible to the copy engine.
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
 }
 
 // Makes this thread's shared-memory writes visible to wgmma (the async proxy).

@@ -125,27 +125,6 @@ __device__ __forceinline__ void wgmma32(float (&d)[16], uint64_t a, uint64_t b) 
 
 #undef WG_OUT8
 
-// mbarrier: this thread's arrival, announcing `bytes` of transactions.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-// `bytes` (a multiple of 16) global -> shared by the copy engine in one
-// request (a TMA bulk copy, no tensor map), completing as transactions on
-// the mbarrier.
-__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// Makes initialised mbarriers visible to the copy engine.
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

@@ -23,19 +23,32 @@
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Strides are
 // in elements; the wrapper checks 16-byte alignment of every row. lse may be
-// null.
+// null. fp32 only: `split` is scratch of
+// wct_segment_attention_fwd_split_bytes(per_pass, skv, h, d) bytes, 16-byte
+// aligned, through which per_pass scenes run at a time, and `staged` (or
+// null) an int64 counter of the kv rows the blocks copy in; bf16 ignores
+// the three.
 extern "C" int wct_segment_attention_fwd(const void* q, const void* k, const void* v,
                                          const int32_t* seg_q, const int32_t* seg_kv, void* out,
                                          float* lse, int b, int sq, int skv, int h, int d,
                                          int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                                          int64_t v_sb, int64_t v_ss, float scale, int dtype,
+                                         void* split, int per_pass, int64_t* staged,
                                          cudaStream_t stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
   const int kv_tiles = (skv + wct::seg_fwd::TILE - 1) / wct::seg_fwd::TILE;
   const wct::seg_fwd::Args a{q, k, v, seg_q, seg_kv, out, lse, sq, skv, h,
                              q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale * wct::seg_bwd::LOG2E,
                              (kv_tiles + 31) / 32};
-  if (dtype == 0) return wct::seg_fwd::launch_tf32(a, b, d, stream);
+  if (dtype == 0)
+    return wct::seg_fwd::launch_tf32(a, b, d, split, per_pass,
+                                     reinterpret_cast<unsigned long long*>(staged), stream);
   if (dtype == 1) return wct::seg_fwd::launch_bf16(a, b, d, stream);
   return int(cudaErrorInvalidValue);
+}
+
+// Bytes of the fp32 forward's scratch for nb scenes (-1 for a head dim the
+// kernel does not take).
+extern "C" int64_t wct_segment_attention_fwd_split_bytes(int nb, int skv, int h, int d) {
+  return wct::seg_fwd::split_bytes_tf32(nb, skv, h, d);
 }

@@ -105,7 +105,13 @@ __device__ __forceinline__ float row_lse(float m, float l) {
 
 // K9 for head dim d on fp32 inputs (3xTF32, segment_attention_fwd_tf32.cu)
 // or bf16 inputs (segment_attention_fwd_bf16.cu). Return a CUDA error code.
-int launch_tf32(const Args& a, int b, int d, cudaStream_t stream);
+// fp32 runs per_pass scenes at a time through `split`, the scratch of
+// split_bytes_tf32(per_pass, skv, h, d) bytes that holds their kv rows
+// split into TF32 hi and lo; `staged` (or null) counts the kv rows the
+// blocks copy in.
+int launch_tf32(const Args& a, int b, int d, void* split, int per_pass,
+                unsigned long long* staged, cudaStream_t stream);
+int64_t split_bytes_tf32(int nb, int skv, int h, int d);
 int launch_bf16(const Args& a, int b, int d, cudaStream_t stream);
 
 }  // namespace wct::seg_fwd

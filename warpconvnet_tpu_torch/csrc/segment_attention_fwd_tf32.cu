@@ -28,32 +28,40 @@
 // the CUDA cores.
 //
 // Design: K9-dq's (segment_attention_bwd_tf32.cu) with an online softmax,
-// warp-specialised. A block per (own query tile, head, scene): NWG
-// consumer warpgroups of 64 own query rows each (two at D <= 64, one at
-// D 128) and one producer warpgroup, walking the kv tiles. The own tile's
-// [min, max] segment range marks the visited 64-row kv tiles in a shared
-// bitmask (mark_kv_tiles, segment_attention_fwd.cuh), so every segment
-// layout stays exact; a visited tile is taken VIS rows at a time (32, 16
-// at D 128). Q is split once into hi and lo A fragments held in registers
-// (at D 128, where they do not fit, into hi and lo tiles); at D <= 64 the
-// producer hands most of its registers to the consumers (setmaxnreg). The producer
-// loads each visited step (prefetched into registers while it waits for a
-// free stage of a four-stage ring), splits it into K hi and lo tiles
-// row-major (the K-major B of S) and V hi and lo tiles transposed (tf32
-// wgmma reads both operands K-major only), the visited rows of each group
-// of 8 in the order 0 2 4 6 1 3 5 7, so that S's accumulator columns
-// (2t, 2t + 1) of lane t are the k columns (t, t + 4) of a tf32 A
-// fragment: P, split in registers, goes straight into the A operand of
-// P V and never touches shared memory. Shared memory bandwidth bounds the
-// products, so Q from registers (one third of S's operand reads) matters.
-// A warpgroup issuing wgmma waits while the tensor cores are busy, so a
-// consumer does its CUDA-core work (softmax, splits, fold) only between
-// its own products: with only the stages' mbarriers between them (no
-// block barrier), the consumers drift apart and one's products run while
-// the other's softmax runs. When every own and visited row of a step is
-// valid and in one segment (a warp's vote), the mask is skipped. Each
-// block writes only its own rows: deterministic. Shared memory at D 64:
-// 4 x 32 KiB visited.
+// warp-specialised, in two launches a pass (a pass: as many scenes as the
+// caller's scratch holds). First a pre-pass (seg_attn_fwd_split_tf32)
+// splits every kv row of the pass once, for all query blocks, into TF32 hi
+// and lo and writes them as the byte image of the forward's shared-memory
+// stages: per (scene, head, kv step of VIS rows) one contiguous block of K
+// hi and lo tiles row-major (the K-major B of S) and V hi and lo tiles
+// transposed (tf32 wgmma reads both operands K-major only), swizzled as
+// wgmma reads them, the rows of each group of 8 of V's tiles in the order
+// 0 2 4 6 1 3 5 7, so that S's accumulator columns (2t, 2t + 1) of lane t
+// are the k columns (t, t + 4) of a tf32 A fragment: P, split in registers,
+// goes straight into the A operand of P V and never touches shared memory.
+// The steps' segment ids follow, padded. Then the forward: a block per (own
+// query tile, head, scene) of NWG consumer warpgroups of 64 own query rows
+// each (two at D <= 64, one at D 128) and one producer warpgroup, walking
+// the kv tiles. The own tile's [min, max] segment range marks the visited
+// 64-row kv tiles in a shared bitmask (mark_kv_tiles,
+// segment_attention_fwd.cuh), so every segment layout stays exact; a
+// visited tile is taken VIS rows at a time (64; 32 at D 128, where Q's
+// tiles take a third of shared memory). One thread of the producer
+// warpgroup copies each visited step's image and ids into a free stage of
+// the ring by bulk copies (TMA, no tensor map) that complete on the stage's
+// full mbarrier; the rest of its warpgroup leaves at once, so at D <= 64 it
+// hands all but 40 registers a thread to the consumers (setmaxnreg), which
+// hold Q split once into hi and lo A fragments (at D 128, where they do not
+// fit, hi and lo tiles). Shared memory bandwidth bounds the products, so Q
+// from registers (one third of S's operand reads) matters. A warpgroup
+// issuing wgmma waits while the tensor cores are busy, so a consumer does
+// its CUDA-core work (softmax, splits, fold) only between its own products:
+// with only the stages' mbarriers between them (no block barrier), the
+// consumers drift apart and one's products run while the other's softmax
+// runs. When every own and visited row of a step is valid and in one
+// segment (a warp's vote), the mask is skipped. Each block writes only its
+// own rows: deterministic. Shared memory at D 64: 3 stages x 64 KiB.
+// Scratch: 16 D bytes a (kv row, head), one pass's scenes at a time.
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -68,7 +76,12 @@ namespace {
 using namespace wct::hopper;
 
 constexpr int WG = 128;               // threads of a warpgroup
+constexpr int SPLIT_NT = 256;         // threads of a pre-pass block
 constexpr size_t kMaxSmem = 232448;   // bytes a block may use on sm_90
+
+__device__ __forceinline__ void st_global4(unsigned char* p, const uint32_t (&v)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
 
 __device__ __forceinline__ void st_shared4(uint32_t addr, const uint32_t (&v)[4]) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
@@ -100,7 +113,7 @@ __device__ __forceinline__ void set_max_regs() {
 template <int D>
 struct Cfg {
   static constexpr int NWG = D > 64 ? 1 : 2;   // consumer warpgroups, 64 own rows each
-  static constexpr int VIS = D > 64 ? 16 : 32;  // visited rows a step
+  static constexpr int VIS = D > 64 ? 32 : 64;  // visited rows a step
   static constexpr int NT = (NWG + 1) * WG;     // the consumers, then the producer warpgroup
   static constexpr int OWN = NWG * TILE;
   // Q as A fragments in registers (hi and lo: D registers a thread), or
@@ -111,45 +124,107 @@ struct Cfg {
   using Tr = Tile<VIS, 4, D>;    // [D][VIS]: visited V rows transposed, K-major B of P V
   static_assert(Row::BYTES == Tr::BYTES && Row::BYTES % 1024 == 0 && Own::BYTES % 1024 == 0,
                 "tiles keep 1024-byte alignment");
-  // Visited 4 x 4 blocks a producer thread stages a step (K and V).
-  static constexpr int BLOCKS = VIS * D / 16;  // of one operand
-  static constexpr int PER = (2 * BLOCKS + WG - 1) / WG;
+  // A step's image, in the scratch and in a stage: K hi, K lo, V^T hi,
+  // V^T lo; its VIS segment ids apart.
+  static constexpr uint32_t STEP = 4 * Row::BYTES;
+  static constexpr uint32_t IDS = VIS * sizeof(int32_t);
   // Registers a thread (setmaxnreg, at two consumers): the launch gives
-  // each 168; the producer keeps what its staging needs (at 72 it spilled)
-  // and hands the rest to the consumers, which hold Q's fragments:
-  // 128 x 104 + 256 x 200 = 384 x 168.
-  static constexpr int PRODUCER_REGS = 104, CONSUMER_REGS = 200;
-  static constexpr int STAGES = 4;             // visited steps in shared memory
+  // each 168; the producer's one copying thread needs few, the consumers
+  // hold Q's fragments, S and P's: 128 x 40 + 256 x 232 = 384 x 168.
+  static constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
+  // Visited steps in shared memory: as many as fit beside Q's tiles.
+  static constexpr int STAGES = D == 128 ? 2 : D == 64 ? 3 : 4;
 
   // 1024 bytes to align the tiles; own Q tiles (!QREG: NWG x hi, lo);
-  // STAGES visited steps, each K row-major and V transposed (hi, lo
-  // each); the full and empty mbarriers of each stage; then seg_own,
-  // seg_oth (STAGES x VIS), range (padded to 4) and the bitmask.
+  // STAGES step images; the stages' segment ids (STAGES x VIS); the full
+  // and empty mbarriers of each stage; then seg_own, range (padded to 4)
+  // and the bitmask.
   static constexpr size_t OWN_BYTES = QREG ? 0 : size_t(NWG) * 2 * Own::BYTES;
-  static constexpr size_t TILE_BYTES = OWN_BYTES + STAGES * 4 * size_t(Row::BYTES);
+  static constexpr size_t TILE_BYTES = OWN_BYTES + STAGES * size_t(STEP);
   static size_t smem_bytes(int nwords) {
-    return 1024 + TILE_BYTES + 2 * STAGES * sizeof(uint64_t) +
-           (OWN + STAGES * VIS + 4 + size_t(nwords)) * sizeof(int);
+    return 1024 + TILE_BYTES + STAGES * IDS + 2 * STAGES * sizeof(uint64_t) +
+           (OWN + 4 + size_t(nwords)) * sizeof(int);
+  }
+  // Scratch of a pass of nb scenes: the step images [nb][h][steps], then
+  // the ids [nb][steps][VIS].
+  __host__ __device__ static int64_t steps(int skv) { return (int64_t(skv) + VIS - 1) / VIS; }
+  static int64_t scratch_bytes(int nb, int skv, int h) {
+    return int64_t(nb) * steps(skv) * (int64_t(h) * STEP + IDS);
   }
 };
 
-// Warp-specialised: the last warpgroup produces (loads each visited step,
-// splits it and stores it into a free stage, then marks the stage full),
-// the others consume (each on its own 64 query rows: S, the online softmax,
-// P V and the fold, then marks the stage empty). Nothing but the stages'
-// mbarriers ties the warpgroups after the start, so one consumer's products
-// run on the tensor cores while the other's softmax runs on the CUDA cores.
-// Thread t of a consumer warpgroup holds, in every [64 x N] accumulator,
-// own rows 16 (t / 32) + (t % 32) / 4 and that + 8, columns
-// 8 i + 2 (t % 4) + {0, 1} of each 8-column group i (wgmma's accumulator
-// layout).
+// The pre-pass: block (v, head, z) splits kv step v of that head of scene
+// b0 + z into its image (rows past Skv zero), and at head 0 writes the
+// step's segment ids (0 past Skv). K chunk (r, c), 4 columns of row r,
+// goes straight through, c fastest across threads; V's rows pass through
+// shared memory (rows padded by a float against bank conflicts), whence
+// V^T chunk (d, c), visited positions 4 c .. 4 c + 3 of column d (rows
+// 8 (c / 2) + c % 2 + 2 j), is taken with the 8 chunks of a 128-byte row
+// fastest, so that a warp's loads and stores both cover whole lines.
 template <int D>
-__global__ void __launch_bounds__(Cfg<D>::NT, 1) seg_attn_fwd_tf32(Args a) {
+__global__ void __launch_bounds__(SPLIT_NT)
+    seg_attn_fwd_split_tf32(Args a, int b0, unsigned char* split) {
+  using C = Cfg<D>;
+  using Row = typename C::Row;
+  using Tr = typename C::Tr;
+  constexpr int VIS = C::VIS;
+  __shared__ float sv[VIS][D + 1];
+  const int v = blockIdx.x, hh = blockIdx.y, z = blockIdx.z, b = b0 + z;
+  const int64_t nsteps = gridDim.x;
+  unsigned char* img = split + ((int64_t(z) * a.h + hh) * nsteps + v) * C::STEP;
+  const float* kb = static_cast<const float*>(a.k) + int64_t(b) * a.k_sb + int64_t(hh) * D;
+  const float* vb = static_cast<const float*>(a.v) + int64_t(b) * a.v_sb + int64_t(hh) * D;
+  const int r0 = v * VIS;
+  for (int idx = threadIdx.x; idx < VIS * D / 4; idx += SPLIT_NT) {
+    const int r = idx / (D / 4), c = idx % (D / 4);
+    const bool ok = r0 + r < a.skv;
+    uint32_t hi[4], lo[4];
+    split4(load4(kb + int64_t(ok ? r0 + r : 0) * a.k_ss + 4 * c, ok), hi, lo);
+    st_global4(img + Row::chunk(r, c), hi);
+    st_global4(img + Row::BYTES + Row::chunk(r, c), lo);
+    const float4 x = load4(vb + int64_t(ok ? r0 + r : 0) * a.v_ss + 4 * c, ok);
+    sv[r][4 * c] = x.x;
+    sv[r][4 * c + 1] = x.y;
+    sv[r][4 * c + 2] = x.z;
+    sv[r][4 * c + 3] = x.w;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < D * VIS / 4; idx += SPLIT_NT) {
+    const int c = (idx / (8 * D)) * 8 + idx % 8, d = idx / 8 % D;
+    uint32_t hi[4], lo[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) split_tf32<false>(sv[8 * (c / 2) + c % 2 + 2 * j][d], hi[j], lo[j]);
+    st_global4(img + 2 * Row::BYTES + Tr::chunk(d, c), hi);
+    st_global4(img + 3 * Row::BYTES + Tr::chunk(d, c), lo);
+  }
+  if (hh == 0) {
+    int32_t* ids = reinterpret_cast<int32_t*>(split + int64_t(gridDim.z) * a.h * nsteps * C::STEP) +
+                   (int64_t(z) * nsteps + v) * VIS;
+    for (int i = threadIdx.x; i < VIS; i += SPLIT_NT)
+      ids[i] = r0 + i < a.skv ? a.seg_kv[int64_t(b) * a.skv + r0 + i] : 0;
+  }
+}
+
+// Warp-specialised: one thread of the last warpgroup produces (copies each
+// visited step's image and ids into a free stage, completing on its full
+// mbarrier), the others consume (each on its own 64 query rows: S, the
+// online softmax, P V and the fold, then marks the stage empty). Nothing
+// but the stages' mbarriers ties the warpgroups after the start, so one
+// consumer's products run on the tensor cores while the other's softmax
+// runs on the CUDA cores. Thread t of a consumer warpgroup holds, in every
+// [64 x N] accumulator, own rows 16 (t / 32) + (t % 32) / 4 and that + 8,
+// columns 8 i + 2 (t % 4) + {0, 1} of each 8-column group i (wgmma's
+// accumulator layout). The block's scene is b0 + blockIdx.z, its images
+// those of pass scene blockIdx.z in `split`; `staged` (or null) counts the
+// kv rows copied in.
+template <int D>
+__global__ void __launch_bounds__(Cfg<D>::NT, 1)
+    seg_attn_fwd_tf32(Args a, int b0, const unsigned char* split, unsigned long long* staged) {
   using C = Cfg<D>;
   using Own = typename C::Own;
   using Row = typename C::Row;
   using Tr = typename C::Tr;
-  constexpr int NWG = C::NWG, VIS = C::VIS, NT = C::NT, OWN = C::OWN, STAGES = C::STAGES;
+  constexpr int NWG = C::NWG, VIS = C::VIS, OWN = C::OWN, STAGES = C::STAGES;
   constexpr int SUBS = TILE / VIS;            // steps a visited tile
   constexpr int NB = D > 64 ? D / 64 : 1;     // 64-row blocks of the [D][VIS] tiles (N of P V)
   constexpr int NW = (D > 64 ? 64 : D) / 2;   // fp32 registers of out a thread, per block
@@ -160,15 +235,19 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1) seg_attn_fwd_tf32(Args a) {
   // part 0 hi, 1 lo.
   auto own_t = [&](int w, int part) { return tiles + (w * 2 + part) * Own::BYTES; };
   const uint32_t vis0 = tiles + uint32_t(C::OWN_BYTES);
-  auto row_t = [&](int st, int part) { return vis0 + (st * 4 + part) * Row::BYTES; };     // K
-  auto tr_t = [&](int st, int part) { return vis0 + (st * 4 + 2 + part) * Row::BYTES; };  // V^T
-  const uint32_t bars = tiles + uint32_t(C::TILE_BYTES);
+  auto row_t = [&](int st, int part) { return vis0 + st * C::STEP + part * Row::BYTES; };  // K
+  auto tr_t = [&](int st, int part) {  // V^T
+    return vis0 + st * C::STEP + (2 + part) * Row::BYTES;
+  };
+  const uint32_t ids0 = tiles + uint32_t(C::TILE_BYTES);
+  const uint32_t bars = ids0 + STAGES * C::IDS;
   auto full_bar = [&](int st) { return bars + st * 8; };
   auto empty_bar = [&](int st) { return bars + (STAGES + st) * 8; };
-  int32_t* seg_own = reinterpret_cast<int32_t*>(
-      smem_raw + (tiles - raw) + C::TILE_BYTES + 2 * STAGES * sizeof(uint64_t));  // [OWN]
-  int32_t* seg_oth = seg_own + OWN;  // [STAGES][VIS]
-  int* range = seg_oth + STAGES * VIS;
+  // [STAGES][VIS]
+  const int32_t* seg_oth = reinterpret_cast<const int32_t*>(smem_raw + (ids0 - raw));
+  int32_t* seg_own = reinterpret_cast<int32_t*>(smem_raw + (bars - raw) +
+                                                2 * STAGES * sizeof(uint64_t));  // [OWN]
+  int* range = seg_own + OWN;
   unsigned* bits = reinterpret_cast<unsigned*>(range + 4);
 
   const int t = threadIdx.x;
@@ -176,18 +255,16 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1) seg_attn_fwd_tf32(Args a) {
   const int g = tw % 32 / 4, tq = tw % 4;
   const int own0 = blockIdx.x * OWN;
   const int hh = blockIdx.y;
-  const int b = blockIdx.z;
+  const int z = blockIdx.z, b = b0 + z;
   const int32_t* skv = a.seg_kv + int64_t(b) * a.skv;
-  mark_kv_tiles<NT, OWN>(a.seg_q + int64_t(b) * a.sq, a.sq, own0, skv, a.skv, a.nwords, seg_own,
-                         bits, range);
+  mark_kv_tiles<C::NT, OWN>(a.seg_q + int64_t(b) * a.sq, a.sq, own0, skv, a.skv, a.nwords,
+                            seg_own, bits, range);
   // A full step (every own and visited row valid, one segment) needs no
   // mask: the own rows must be uniform, the visited rows are voted on.
   const int own_lo = range[0];
   const bool own_uniform = own_lo == range[1] && own0 + OWN <= a.sq;
 
   const float* qb = static_cast<const float*>(a.q) + int64_t(b) * a.q_sb + int64_t(hh) * D;
-  const float* kb = static_cast<const float*>(a.k) + int64_t(b) * a.k_sb + int64_t(hh) * D;
-  const float* vb = static_cast<const float*>(a.v) + int64_t(b) * a.v_sb + int64_t(hh) * D;
 
   // Visited steps: step v is kv rows [v VIS, v VIS + VIS), in the
   // bitmask's tile v / SUBS; steps wholly past the end are skipped. Step i
@@ -201,9 +278,10 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1) seg_attn_fwd_tf32(Args a) {
 
   if (t == 0) {
     for (int st = 0; st < STAGES; ++st) {
-      mbar_init(full_bar(st), WG);
+      mbar_init(full_bar(st), 1);
       mbar_init(empty_bar(st), NWG * WG);
     }
+    fence_barrier_init();
   }
   const int rows[2] = {16 * (tw / 32) + g, 16 * (tw / 32) + g + 8};  // own rows in the warpgroup
   const int wg0 = own0 + wg * TILE;  // this warpgroup's first own row
@@ -224,89 +302,23 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1) seg_attn_fwd_tf32(Args a) {
 
   if (wg == NWG) {
     if constexpr (NWG == 2) set_max_regs<C::PRODUCER_REGS, false>();
-    // Producer: thread tw stages, of operand op (0 K, 1 V), the 4 x 4
-    // blocks tw + WG i of rows 8 m + s + 2 j (j = 0..3) and columns
-    // 4 c .. 4 c + 3, prefetched into registers while it waits for a free
-    // stage; threads tw < VIS also row tw's segment id. At VIS 32 and D >= 32 the eight
-    // lanes of each 128-byte store phase take the blocks (c, m, s) with
-    // c % 8 ^ s and (2 m + s) ^ 4 (c % 2) all distinct, so that their
-    // 16-byte stores hit distinct banks in the row-major and in the
-    // transposed tile; a warp's loads still fill whole 32-byte sectors.
-    auto block_of = [&](int blk, int& op, int& m, int& s, int& c) {
-      op = blk / C::BLOCKS;
-      const int rem = blk % C::BLOCKS;
-      if constexpr (VIS == 32 && D >= 32) {
-        const int l = rem & 7, p = rem >> 3;
-        s = (l >> 1) & 1;
-        m = 2 * (l >> 2) + (l & 1);
-        c = (p >> 3) * 8 + ((l ^ s) ^ (p & 7));
-      } else {
-        c = rem % (D / 4);
-        m = rem / (D / 4) / 2;
-        s = rem / (D / 4) % 2;
-      }
-    };
-    float4 pre[C::PER][4];
-    int pre_seg = 0;
-    auto prefetch = [&](int v) {
-      const int r0 = v * VIS;
-#pragma unroll
-      for (int i = 0; i < C::PER; ++i) {
-        const int blk = tw + i * WG;
-        if (blk >= 2 * C::BLOCKS) break;
-        int op, m, s, c;
-        block_of(blk, op, m, s, c);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = r0 + 8 * m + s + 2 * j;
-          const bool ok = r < a.skv;
-          const float* x = op ? vb : kb;
-          pre[i][j] = load4(x + int64_t(ok ? r : 0) * (op ? a.v_ss : a.k_ss) + 4 * c, ok);
-        }
-      }
-      if (tw < VIS) pre_seg = r0 + tw < a.skv ? skv[r0 + tw] : 0;
-    };
-    // The prefetched step, split, into stage st: K row-major, V transposed.
-    auto store = [&](int st) {
-#pragma unroll
-      for (int i = 0; i < C::PER; ++i) {
-        const int blk = tw + i * WG;
-        if (blk >= 2 * C::BLOCKS) break;
-        int op, m, s, c;
-        block_of(blk, op, m, s, c);
-        uint32_t hi[4][4], lo[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) split4(pre[i][j], hi[j], lo[j]);
-        if (op == 0) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            st_shared4(row_t(st, 0) + Row::chunk(8 * m + s + 2 * j, c), hi[j]);
-            st_shared4(row_t(st, 1) + Row::chunk(8 * m + s + 2 * j, c), lo[j]);
-          }
-        } else {
-          // Column 4 c + e, visited positions 8 m + 4 s + j hold rows
-          // 8 m + s + 2 j: the 0 2 4 6 1 3 5 7 order.
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const uint32_t h4[4] = {hi[0][e], hi[1][e], hi[2][e], hi[3][e]};
-            const uint32_t l4[4] = {lo[0][e], lo[1][e], lo[2][e], lo[3][e]};
-            st_shared4(tr_t(st, 0) + Tr::chunk(4 * c + e, 2 * m + s), h4);
-            st_shared4(tr_t(st, 1) + Tr::chunk(4 * c + e, 2 * m + s), l4);
-          }
-        }
-      }
-      if (tw < VIS) seg_oth[st * VIS + tw] = pre_seg;
-    };
-    if (cur >= 0) prefetch(cur);
+    if (tw != 0) return;
+    // Producer: this scene's and head's step images, then the ids.
+    const int64_t nsteps = C::steps(a.skv);
+    const unsigned char* img = split + (int64_t(z) * a.h + hh) * nsteps * C::STEP;
+    const unsigned char* ids = split + int64_t(gridDim.z) * a.h * nsteps * C::STEP +
+                               int64_t(z) * nsteps * C::IDS;
+    unsigned long long copied = 0;
     for (int it = 0; cur >= 0; ++it) {
       const int st = it % STAGES;
       if (it >= STAGES) mbar_wait(empty_bar(st), (it / STAGES - 1) & 1);
-      store(st);
-      fence_async_proxy();  // the stores, before the tensor cores read them
-      mbar_arrive(full_bar(st));
+      mbar_expect_tx(full_bar(st), C::STEP + C::IDS);
+      bulk_copy(row_t(st, 0), img + cur * int64_t(C::STEP), C::STEP, full_bar(st));
+      bulk_copy(ids0 + st * C::IDS, ids + cur * int64_t(C::IDS), C::IDS, full_bar(st));
+      copied += VIS;
       cur = next_step(cur);
-      if (cur >= 0) prefetch(cur);
     }
+    if (staged != nullptr) atomicAdd(staged, copied);
     return;
   }
 
@@ -349,10 +361,14 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1) seg_attn_fwd_tf32(Args a) {
     const int st = it % STAGES;
     const int o0 = cur * VIS;
     mbar_wait(full_bar(st), (it / STAGES) & 1);
-    // Lane c < VIS votes whether visited row c is valid and in the own
-    // rows' one segment.
-    const bool full = own_uniform &&
-        __all_sync(0xffffffffu, lane >= VIS || (o0 + lane < a.skv && seg_oth[st * VIS + lane] == own_lo));
+    // Lane c votes whether visited rows c and c + 32 (VIS 64) are valid
+    // and in the own rows' one segment.
+    static_assert(VIS % 32 == 0, "a warp votes on whole rounds of visited rows");
+    bool mine = true;
+#pragma unroll
+    for (int c = lane; c < VIS; c += 32)
+      mine = mine && o0 + c < a.skv && seg_oth[st * VIS + c] == own_lo;
+    const bool full = own_uniform && __all_sync(0xffffffffu, mine);
 
     // S = Q K^T as lo hi + hi lo + hi hi.
     float s[VIS / 2];
@@ -482,28 +498,49 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1) seg_attn_fwd_tf32(Args a) {
 }
 
 template <int D>
-int launch(const Args& a, int b, cudaStream_t stream) {
+int launch(const Args& a, int b, void* split, int per_pass, unsigned long long* staged,
+           cudaStream_t stream) {
   using C = Cfg<D>;
   const size_t bytes = C::smem_bytes(a.nwords);
-  if (bytes > kMaxSmem) return int(cudaErrorInvalidValue);
+  if (bytes > kMaxSmem || per_pass < 1) return int(cudaErrorInvalidValue);
   auto kernel = seg_attn_fwd_tf32<D>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(bytes));
   if (err != cudaSuccess) return int(err);
-  const dim3 grid((a.sq + C::OWN - 1) / C::OWN, a.h, b);
-  kernel<<<grid, C::NT, bytes, stream>>>(a);
-  return int(cudaGetLastError());
+  auto* scratch = static_cast<unsigned char*>(split);
+  for (int b0 = 0; b0 < b; b0 += per_pass) {
+    const int nb = b - b0 < per_pass ? b - b0 : per_pass;
+    if (a.skv > 0)
+      seg_attn_fwd_split_tf32<D><<<dim3(unsigned(C::steps(a.skv)), a.h, nb), SPLIT_NT, 0,
+                                   stream>>>(a, b0, scratch);
+    const dim3 grid((a.sq + C::OWN - 1) / C::OWN, a.h, nb);
+    kernel<<<grid, C::NT, bytes, stream>>>(a, b0, scratch, staged);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return int(err);
+  }
+  return 0;
 }
 
 }  // namespace
 
-int launch_tf32(const Args& a, int b, int d, cudaStream_t stream) {
+int launch_tf32(const Args& a, int b, int d, void* split, int per_pass,
+                unsigned long long* staged, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<16>(a, b, stream);
-    case 32: return launch<32>(a, b, stream);
-    case 64: return launch<64>(a, b, stream);
-    case 128: return launch<128>(a, b, stream);
+    case 16: return launch<16>(a, b, split, per_pass, staged, stream);
+    case 32: return launch<32>(a, b, split, per_pass, staged, stream);
+    case 64: return launch<64>(a, b, split, per_pass, staged, stream);
+    case 128: return launch<128>(a, b, split, per_pass, staged, stream);
     default: return int(cudaErrorInvalidValue);
+  }
+}
+
+int64_t split_bytes_tf32(int nb, int skv, int h, int d) {
+  switch (d) {
+    case 16: return Cfg<16>::scratch_bytes(nb, skv, h);
+    case 32: return Cfg<32>::scratch_bytes(nb, skv, h);
+    case 64: return Cfg<64>::scratch_bytes(nb, skv, h);
+    case 128: return Cfg<128>::scratch_bytes(nb, skv, h);
+    default: return -1;
   }
 }
 

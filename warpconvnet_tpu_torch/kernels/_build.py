@@ -55,9 +55,10 @@ _SIGNATURES = {
     #                         plan, stream)
     "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # int wct_segment_attention_fwd(q, k, v, seg_q, seg_kv, out, lse, b, sq, skv, h, d,
-    #                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, dtype, stream)
+    #                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, dtype,
+    #                               split, per_pass, staged, stream)
     "wct_segment_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P],
+                                  _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P, _I, _P, _P],
     # int wct_segment_attention_bwd_dkv(q, k, v, dout, lse, di, seg_q, seg_kv, dk, dv,
     #                                   b, sq, skv, h, d, strides[8], scale, dtype, stream)
     "wct_segment_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -151,6 +152,9 @@ def load_library() -> ctypes.CDLL:
             # int64 wct_igemm_image_bytes(k, c_in, c_out, n_out, b)
             lib.wct_igemm_image_bytes.argtypes = [_I, _I, _I, _I, _I]
             lib.wct_igemm_image_bytes.restype = _L
+            # int64 wct_segment_attention_fwd_split_bytes(nb, skv, h, d)
+            lib.wct_segment_attention_fwd_split_bytes.argtypes = [_I, _I, _I, _I]
+            lib.wct_segment_attention_fwd_split_bytes.restype = _L
             _lib = lib
         return _lib
 

@@ -17,6 +17,13 @@ bf16 in ``csrc/segment_attention_fwd_bf16.cu`` and
 ``csrc/segment_attention.cu``), and its ``*_plain`` version on CPU tensors,
 counts its launches (``tracing`` host counter ``launches.<wrapper>``), and
 raises on what the kernel does not take. The kernels read q, k, v and dO through their row strides (no copy).
+
+The fp32 forward first splits each kv row once into TF32 hi and lo, into
+scratch that its blocks then copy from (at most ``SPLIT_SCRATCH_BYTES`` alive
+at once: a scene or more a pass). ``tracing`` counts the rows split (host
+counter ``k9.fwd_split_rows``, B H Skv a call) and, while recording, the kv
+rows the blocks copy in (device counter ``k9.fwd_staged_rows``): their ratio
+is how often each split is reused.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)  # csrc/segment_attention.cu instantiates these
 QUERY_TILE = 128  # query rows per block of the fp32 forward at D <= 64
 KV_TILE = 64  # kv rows per tile
+SPLIT_SCRATCH_BYTES = 1 << 28  # the fp32 forward's split kv rows alive at once (one scene at least)
 PLAIN_CHUNK = 1024
 
 
@@ -143,15 +151,31 @@ def segment_attention_fwd(
     lib = _build.load_library()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    split, per_pass, staged = None, b, None
+    if q.dtype == torch.float32:
+        per_pass, nbytes = split_scratch(lib, b, skv, h, d)
+        split = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+        staged = tracing.counter_ptr(q.device, "k9.fwd_staged_rows")
     rc = lib.wct_segment_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, skv, h, d, *strides,
         float(scale if scale is not None else d ** -0.5), _DTYPE_CODES[q.dtype],
+        None if split is None else split.data_ptr(), per_pass, staged,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, name)
     tracing.add("launches.segment_attention_fwd")
+    if split is not None:
+        tracing.add("k9.fwd_split_rows", b * h * skv)
     return (out, lse) if return_lse else out
+
+
+def split_scratch(lib: ctypes.CDLL, b: int, skv: int, h: int, d: int) -> Tuple[int, int]:
+    """(scenes a pass, scratch bytes) of the fp32 forward: as many scenes
+    as ``SPLIT_SCRATCH_BYTES`` holds, one at least."""
+    one = lib.wct_segment_attention_fwd_split_bytes(1, skv, h, d)
+    per_pass = max(1, min(b, SPLIT_SCRATCH_BYTES // max(one, 1)))
+    return per_pass, per_pass * one
 
 
 def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -331,12 +355,16 @@ def query_tile(dtype: torch.dtype, d: int) -> int:
     return QUERY_TILE if d <= 64 else 64
 
 
-def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor,
-                     qt: int = QUERY_TILE) -> Tuple[int, int]:
-    """(kv tiles the kernel visits, kv tiles in all) over every (scene,
-    query tile of ``qt`` rows), by the kernel's rule: a kv tile is visited
-    when one of its rows has a segment inside the query tile's [min, max]
-    range. Per head; plain PyTorch, for reporting."""
+def kv_step(dtype: torch.dtype, d: int) -> int:
+    """kv rows the forward kernel takes a step: a whole kv tile, but 32
+    rows for fp32 at D 128 (where Q's split tiles share shared memory)."""
+    return 32 if dtype == torch.float32 and d > 64 else KV_TILE
+
+
+def _visited_tiles(seg_q: torch.Tensor, seg_kv: torch.Tensor, qt: int) -> torch.Tensor:
+    """[B, query tiles, kv tiles] bool: the kernel's rule, a kv tile is
+    visited when one of its rows has a segment inside the query tile's
+    [min, max] range."""
     b, sq = seg_q.shape
     skv = seg_kv.shape[1]
     nq, nkv = -(-sq // qt), -(-skv // KV_TILE)
@@ -344,9 +372,31 @@ def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor,
     sqp = torch.nn.functional.pad(seg_q, (0, nq * qt - sq), value=big).reshape(b, nq, qt)
     lo = sqp.amin(dim=2)
     hi = torch.where(sqp == big, small, sqp).amax(dim=2)
-    visited = 0
+    out = torch.zeros((b, nq, nkv), dtype=torch.bool, device=seg_q.device)
     for i in range(nq):
         inside = (seg_kv >= lo[:, i, None]) & (seg_kv <= hi[:, i, None])  # [B, Skv]
         inside = torch.nn.functional.pad(inside, (0, nkv * KV_TILE - skv))
-        visited += int(inside.reshape(b, nkv, KV_TILE).any(dim=2).sum())
-    return visited, b * nq * nkv
+        out[:, i] = inside.reshape(b, nkv, KV_TILE).any(dim=2)
+    return out
+
+
+def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor,
+                     qt: int = QUERY_TILE) -> Tuple[int, int]:
+    """(kv tiles the kernel visits, kv tiles in all) over every (scene,
+    query tile of ``qt`` rows), by the kernel's rule (:func:`_visited_tiles`).
+    Per head; plain PyTorch, for reporting."""
+    visited = _visited_tiles(seg_q, seg_kv, qt)
+    return int(visited.sum()), visited.numel()
+
+
+def kv_rows_staged(seg_q: torch.Tensor, seg_kv: torch.Tensor, qt: int, step: int) -> int:
+    """kv rows the forward's blocks copy in (``step`` rows a step of each
+    visited tile, pad rows included; a step wholly past Skv is skipped)
+    over every (scene, query tile of ``qt`` rows). Per head; the fp32
+    kernel's ``k9.fwd_staged_rows`` is this times the heads."""
+    skv = seg_kv.shape[1]
+    starts = torch.arange(0, KV_TILE, step)  # step offsets within a tile
+    tile0 = torch.arange(-(-skv // KV_TILE)) * KV_TILE
+    steps = ((tile0[:, None] + starts[None, :]) < skv).sum(dim=1)  # [kv tiles]
+    visited = _visited_tiles(seg_q, seg_kv, qt).cpu()
+    return int((visited * steps).sum()) * step
