@@ -347,19 +347,22 @@ class Run:
         """(losses, first gradient norms, change norms, the first and the
         last step's logits) of the reference taking the compared steps
         under ``precision``. Faults to calibrate against: ``half`` "batch"
-        steps on the first scene of each batch only; "loss" runs the
-        forward on the whole batch and takes the loss from its first scene
-        only."""
+        steps on the first half of each batch's scenes only; "loss" runs
+        the forward on the whole batch and takes the loss from its first
+        half only."""
         self._tf32(precision)
         params = self._ref_params(True)
         p0 = {k: v.detach().clone() for k, v in params.items()}
         opt = torch.optim.Adam(params.values(), lr=self.cfg["optimizer"]["lr"])
         losses, grad, seen = [], None, []
         for item, labels in self.compared:
-            scenes = traffic.scenes_of(item)[:1] if half == "batch" else traffic.scenes_of(item)
+            scenes = traffic.scenes_of(item)
+            kept = max(len(scenes) // 2, 1)
+            if half == "batch":
+                scenes = scenes[:kept]
             logits = self.ref.forward(params, scenes, self.cfg, self.n_cap, True, precision)
             seen.append([x.detach() for x in logits])
-            lossed = logits[:1] if half == "loss" else logits
+            lossed = logits[:kept] if half == "loss" else logits
             lab = torch.cat([labels[s, :x.shape[0]] for s, x in enumerate(lossed)])
             loss = torch.nn.functional.cross_entropy(torch.cat(lossed), lab)
             opt.zero_grad(set_to_none=True)

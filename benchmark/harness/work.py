@@ -4,18 +4,21 @@ table, never from the program's own counters, so that a share reads the
 same work whatever implements it.
 
 Per scene: the cells of each stride level (the first ``max(n_cap >> l,
-floor)`` in lexicographic order), the 3^3 pairs of each level, the stride-2
-parity pairs between levels (finer cells whose cell is kept), the 4^3
-tokens (the first ``token_capacity``), the voxels whose token is kept,
-and the rows a capacity drops (finer rows whose cell lies past its level's
-capacity, tokens' voxels likewise): a cell's set-up refuses a pool on
-which a capacity drops any, so that every cell times the model's whole
+floor)`` in lexicographic order), the k^3 pairs of each (level, k) in
+one store: k 3 at every level, and each other (level, k) that a ``sub``
+call names; the stride-2 parity pairs between levels (finer cells whose cell is kept),
+the 4^3 tokens (the first ``token_capacity``), the voxels whose token is
+kept, and the rows a capacity drops (finer rows whose cell lies past its
+level's capacity, tokens' voxels likewise): a cell's set-up refuses a pool
+on which a capacity drops any, so that every cell times the model's whole
 work.
 
 The call table (``calls`` in a configuration) lists each conv and
 attention call of one forward:
 
-- ``{"op": "sub3", "level": l, "c_in", "c_out"}``: a 3^3 submanifold conv;
+- ``{"op": "sub", "kernel": k, "level": l, "c_in", "c_out"}``: a k^3
+  submanifold conv, k odd, 3 where ``kernel`` is left out; ``sub3``, the
+  name the MinkUNet18 and Volt-s tables use, is the same op at k 3;
 - ``{"op": "down2", "level": l, ...}``: the 2^3 stride-2 conv from level l
   to l + 1; ``{"op": "up2", "level": l, ...}``: the transposed conv from
   l + 1 onto level l;
@@ -23,39 +26,79 @@ attention call of one forward:
   conv or a dense layer over the level's cells or the tokens;
 - ``{"op": "attn", "heads", "head_dim"}``: global attention over each
   scene's tokens;
+- ``{"op": "patch_attn", "level": l, "patch": P, "heads", "head_dim"}``:
+  attention within consecutive P-row patches of the level's cells in
+  serialized order (the last patch holds the rest).
 
-each with an optional ``count``. Operations are multiply-adds times two.
-Bytes count each input read once and each output written once, over the
-rows that hold a pair only (``wgrad_nbytes`` of ``chip_smoke.py``, for
-every table conv): features in the conv dtype, tables int32, weight
-gradients fp32.
+each with an optional ``count``. ``patch_attn`` carries its patch on the
+call because ``patch_size`` at the top of a configuration means Volt's
+4^3 tokens: a configuration that sets it has tokens counted, and the rows
+they drop refused, which a serialized-patch model has none of.
+
+Operations are multiply-adds times two. Attention counts its useful pairs
+only: no pad rows, no recompute, the backward twice the forward. Bytes
+count each input read once and each output written once, over the rows
+that hold a pair only (``wgrad_nbytes`` of ``chip_smoke.py``, for every
+table conv): features in the conv dtype, tables int32, weight gradients
+fp32; ``patch_attn``'s q, k, v, o and their gradients in the trunk dtype
+(the conv dtype where the configuration has none), its log-sum-exp and
+delta rows fp32. Dense calls and global ``attn`` carry no byte count.
+``patch_attn``'s bytes are this model alone: no kernel of the port runs
+serialized patch attention yet, so they are unchecked against a trace
+until the configuration that first uses the op holds them against its
+kernel's.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import List, Tuple
 
 import torch
 
 from benchmark.models import sparse
 
 
-def scene_counts(coords: torch.Tensor, cfg: dict, n_cap: int) -> Dict[str, list]:
+def _pair_kernels(cfg: dict, levels: int) -> List[Tuple[int, int]]:
+    """(level, k) whose k^3 pairs a scene's counts hold: k 3 at every
+    level, then each other (level, k) of a ``sub`` call, in first use order."""
+    out = [(level, 3) for level in range(levels)]
+    for call in cfg.get("calls", []):
+        if call["op"] != "sub":
+            continue
+        key = (call["level"], call.get("kernel", 3))
+        if key[1] % 2 == 0:
+            raise ValueError(f"a submanifold conv needs an odd kernel, not {key[1]}")
+        if key not in out:
+            out.append(key)
+    return out
+
+
+def _pairs(keys: torch.Tensor, coords: torch.Tensor, size: int) -> torch.Tensor:
+    """Pairs of the ``size``^3 submanifold map of one level (keys sorted)."""
+    n = keys.numel()
+    total = torch.zeros((), dtype=torch.int64, device=coords.device)
+    for off in sparse.offsets_3d(size, coords.device):
+        q = sparse.coord_keys(coords + off)
+        pos = torch.searchsorted(keys, q).clamp(max=max(n - 1, 0))
+        total += (keys[pos] == q).sum()
+    return total
+
+
+def scene_counts(coords: torch.Tensor, cfg: dict, n_cap: int) -> dict:
     """Counts of one lexicographic scene (coords [n, 3] on the device)."""
     levels = cfg.get("levels", 1)
     caps = sparse.level_caps(n_cap, levels, cfg.get("level_cap_floor", 1))
     lv = sparse.scene_levels(coords, caps)
     dev = coords.device
     dropped = torch.zeros((), dtype=torch.int64, device=dev) + max(coords.shape[0] - caps[0], 0)
-    pairs = torch.zeros(levels, dtype=torch.int64, device=dev)
+    kernels = _pair_kernels(cfg, levels)
+    pairs = torch.zeros(len(kernels), dtype=torch.int64, device=dev)
     down = torch.zeros(max(levels - 1, 0), dtype=torch.int64, device=dev)
     for i, level in enumerate(lv):
         keys = sparse.coord_keys(level.coords)
-        n = keys.numel()
-        for off in sparse.offsets_3d(3, dev):
-            q = sparse.coord_keys(level.coords + off)
-            pos = torch.searchsorted(keys, q).clamp(max=max(n - 1, 0))
-            pairs[i] += (keys[pos] == q).sum()
+        for j, (at, size) in enumerate(kernels):
+            if at == i:
+                pairs[j] = _pairs(keys, level.coords, size)
         if i > 0:
             down[i - 1] = (level.parent >= 0).sum()
             dropped += (level.parent < 0).sum()
@@ -67,7 +110,8 @@ def scene_counts(coords: torch.Tensor, cfg: dict, n_cap: int) -> Dict[str, list]
         dropped += (tok.parent < 0).sum()
     cells = [level.coords.shape[0] for level in lv]
     host = torch.cat([pairs, down, tokens, dropped[None]]).tolist()
-    return {"cells": cells, "pairs": host[:levels], "down": host[levels:2 * levels - 1],
+    return {"cells": cells, "pairs": dict(zip(kernels, host)),
+            "down": host[len(kernels):len(kernels) + levels - 1],
             "tokens": host[-3], "token_voxels": host[-2], "dropped": host[-1]}
 
 
@@ -94,11 +138,41 @@ def _rows(call: dict, sc: dict) -> int:
     return sc["cells"][call.get("level", 0)]
 
 
+def _table_conv(n: int, p: int, taps: int, ci: int, co: int, e: int,
+                train: bool) -> List[tuple]:
+    """A submanifold conv of ``taps`` offsets over n rows with p pairs; its
+    backward is the fused dx and dw kernel."""
+    w = 4  # fp32 weight gradients
+    f = 2.0 * p * ci * co
+    wb = taps * ci * co * e
+    out = [("fwd", f, n * ci * e + wb + taps * n * 4 + n * co * e)]
+    if train:
+        out.append(("fused", 2 * f, 2 * n * ci * e + n * co * e + wb + taps * n * 4
+                    + taps * ci * co * w))
+    return out
+
+
+def _patch_attn(n: int, patch: int, heads: int, dim: int, e: int, train: bool) -> List[tuple]:
+    """Attention within consecutive ``patch``-row patches of n rows: the
+    useful pairs q P^2 + r^2 (q = n // P full patches, r = n % P rows in
+    the last); q, k, v and o once, an fp32 log-sum-exp a row and head; the
+    backward reads q, k, v, o and dO, writes dq, dk and dv, and reads the
+    log-sum-exp and delta rows."""
+    q, r = divmod(n, patch)
+    f = 4.0 * dim * heads * (q * patch * patch + r * r)
+    act, row = n * heads * dim * e, n * heads * 4
+    out = [("attn", f, 4 * act + row)]
+    if train:
+        out.append(("attn_bwd", 2 * f, 8 * act + 2 * row))
+    return out
+
+
 def call_work(call: dict, sc: dict, cfg: dict, train: bool) -> List[tuple]:
     """[(kind, flops, bytes)] of the kernels one call of ``call`` runs on
     one scene: the forward, and with ``train`` its backward (``fused``: dx
-    and dw of a 3^3 self-map in one kernel; ``dgrad`` and ``wgrad`` for
-    the stride-2 convs; ``attn_bwd``). Dense calls have no byte count."""
+    and dw of a k^3 self-map in one kernel; ``dgrad`` and ``wgrad`` for
+    the stride-2 convs; ``attn_bwd``). Dense calls and global attention
+    have no byte count."""
     ci, co = call.get("c_in", 0), call.get("c_out", 0)
     e = _ELT[cfg["conv_dtype"]]
     w = 4  # fp32 weight gradients
@@ -107,18 +181,16 @@ def call_work(call: dict, sc: dict, cfg: dict, train: bool) -> List[tuple]:
         s = sc["tokens"]
         f = 4.0 * s * s * call["head_dim"] * call["heads"]
         return [("attn", f, 0.0)] + ([("attn_bwd", 2 * f, 0.0)] if train else [])
+    if op == "patch_attn":
+        return _patch_attn(sc["cells"][call["level"]], call["patch"], call["heads"],
+                           call["head_dim"], _ELT[cfg.get("trunk_dtype", cfg["conv_dtype"])],
+                           train)
     if op == "dense":
         f = 2.0 * _rows(call, sc) * ci * co
         return [("dense", f, 0.0)] + ([("dense_bwd", 2 * f, 0.0)] if train else [])
-    if op == "sub3":
-        n, p = sc["cells"][call["level"]], sc["pairs"][call["level"]]
-        f = 2.0 * p * ci * co
-        wb = 27 * ci * co * e
-        out = [("fwd", f, n * ci * e + wb + 27 * n * 4 + n * co * e)]
-        if train:
-            out.append(("fused", 2 * f, 2 * n * ci * e + n * co * e + wb + 27 * n * 4
-                        + 27 * ci * co * w))
-        return out
+    if op in ("sub", "sub3"):
+        lv, k = call["level"], call.get("kernel", 3)
+        return _table_conv(sc["cells"][lv], sc["pairs"][(lv, k)], k ** 3, ci, co, e, train)
     lv = call["level"]
     fine, coarse = sc["down"][lv], sc["cells"][lv + 1]
     f = 2.0 * fine * ci * co

@@ -10,13 +10,15 @@ BN, ReLU, the skip of that level concatenated after it, and
 ``layers[4 + s]`` BasicBlocks. Head: a 1x1 conv with bias.
 
 fp32 throughout (TF32 off), written from that description; it imports
-nothing of the measured program. The control (``precision="control"``)
-holds in fp8 every tensor the measured model holds in bf16 under its bf16
-compute dtype: the conv operands and outputs, the BN outputs and the
-residual sums, forward and backward. Parameters are a dict keyed by the
-measured model's parameter names. Levels follow the padded layout of the
-measured model: level i keeps the first ``max(n_cap >> i, floor)`` cells
-in lexicographic order.
+nothing of the measured program. In training each BasicBlock keeps only
+its input and is recomputed in the backward (activation checkpointing),
+so that a step over eight scenes of 262144 rows fits on one card. The
+control (``precision="control"``) holds in fp8 every tensor the measured
+model holds in bf16 under its bf16 compute dtype: the conv operands and
+outputs, the BN outputs and the residual sums, forward and backward.
+Parameters are a dict keyed by the measured model's parameter names.
+Levels follow the padded layout of the measured model: level i keeps the
+first ``max(n_cap >> i, floor)`` cells in lexicographic order.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from benchmark.models import sparse
 
@@ -132,7 +135,10 @@ def forward(params: Dict[str, torch.Tensor], scenes: List[Tuple[torch.Tensor, to
     def stage(x, idx, lv):
         i = 0
         while f"block{idx}.{i}.conv1.weight" in P:
-            x = block(x, f"block{idx}.{i}", lv)
+            if x.requires_grad:
+                x = checkpoint(block, x, f"block{idx}.{i}", lv, use_reentrant=False)
+            else:
+                x = block(x, f"block{idx}.{i}", lv)
             i += 1
         return x
 

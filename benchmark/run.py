@@ -10,7 +10,9 @@ cell's end-to-end metrics with ``--trace 0``, its per-layer metrics (and a
 breakdown of the profiled slice) with ``--trace 1``. The numbers compared
 are printed beside their limits as the last lines of standard error and
 under ``checks``, the last key of the result. Exits non-zero, with no
-result, without a card of compute capability 9.0 or more.
+result, without a card of compute capability 9.0 or more, and where JAX,
+jaxlib, flax or the JAX package ``warpconvnet_tpu`` was loaded into this
+process by the time the run ends.
 """
 
 import time
@@ -24,6 +26,13 @@ import sys  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
+JAX_TOPS = ("jax", "jaxlib", "flax", "warpconvnet_tpu")
+
+
+def jax_modules(modules) -> list:
+    """Names in ``modules`` whose top-level name is one of ``JAX_TOPS``,
+    compared whole (``warpconvnet_tpu_torch`` is the port)."""
+    return sorted(m for m in modules if m.split(".")[0] in JAX_TOPS)
 
 
 def parse(argv):
@@ -64,6 +73,10 @@ def main(argv=None) -> int:
     print(f"card: {measure.card_name()}; clocks.sm, power.draw, temperature: "
           f"{measure.card_state()}", file=sys.stderr, flush=True)
     out = cell.execute(args.workload, args.seed, args.seconds, bool(args.trace), "cuda", T_START)
+    loaded = jax_modules(sys.modules)
+    if loaded:
+        print("loaded in the measured process: " + ", ".join(loaded), file=sys.stderr)
+        return 3
     print(json.dumps(out), flush=True)
     return 0
 

@@ -28,9 +28,15 @@ def small(name):
     return {"config": cfg, "traffic": {**c.traffic, **SMALL}}
 
 
-def first_scene(vox):
-    return vox.replace(coords=vox.coords[:1], features=vox.features[:1],
-                       num_valid=vox.num_valid[:1])
+def kept(batch: int) -> int:
+    """Scenes in the first half of a batch (at least one)."""
+    return max(batch // 2, 1)
+
+
+def first_half(vox):
+    k = kept(vox.coords.shape[0])
+    return vox.replace(coords=vox.coords[:k], features=vox.features[:k],
+                       num_valid=vox.num_valid[:k])
 
 
 def unchanged(step, model, opt):
@@ -45,20 +51,21 @@ def unchanged(step, model, opt):
 
 
 def half_step(step, model, opt):
-    return lambda vox, labels: step(first_scene(vox), labels[:1])
+    return lambda vox, labels: step(first_half(vox), labels[:kept(labels.shape[0])])
 
 
 def half_loss(step, model, opt):
-    """The forward over the whole batch, the loss from its first scene."""
+    """The forward over the whole batch, the loss from its first half."""
     from warpconvnet_tpu_torch.parallel import train
 
     whole = train.masked_cross_entropy
 
-    def first_scene_only(logits, labels, mask):
-        return whole(logits, labels, mask & (torch.arange(mask.shape[0], device=mask.device) == 0)[:, None])
+    def first_half_only(logits, labels, mask):
+        rows = torch.arange(mask.shape[0], device=mask.device) < kept(mask.shape[0])
+        return whole(logits, labels, mask & rows[:, None])
 
     def run(vox, labels):
-        train.masked_cross_entropy = first_scene_only
+        train.masked_cross_entropy = first_half_only
         try:
             return step(vox, labels)
         finally:
@@ -87,8 +94,9 @@ def wrong_attention_backward(step, model, opt):
 
 def half_forward(forward):
     def run(model, vox):
-        out = forward(model, first_scene(vox))
-        return torch.cat([out, torch.zeros_like(out)])
+        out = forward(model, first_half(vox))
+        rest = vox.coords.shape[0] - out.shape[0]
+        return torch.cat([out, out.new_zeros((rest, *out.shape[1:]))])
     return run
 
 
@@ -105,7 +113,8 @@ FAULTS = {
               "half loss": {"step": half_loss}},
     "infer": {"half batch": {"forward": half_forward}, "answer altered": {"forward": altered}},
 }
-CELLS = ["minkunet18.train", "minkunet18.infer", "volt-s.train", "volt-s.infer"]
+CELLS = ["minkunet18.train", "minkunet18.infer", "volt-s.train", "volt-s.infer",
+         "minkunet18.train.b8"]
 
 
 def run(name, faults=None, seed=2 ** 31 + 7):

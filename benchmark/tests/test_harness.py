@@ -43,11 +43,11 @@ def brute_counts(coords: np.ndarray, cfg: dict, n_cap: int) -> dict:
         down.append(sum((x >> 1, y >> 1, z >> 1) in kept for x, y, z in fine))
         dropped += len(fine) - down[-1]
         levels.append(cells)
-    pairs = []
-    for lv in levels:
+    pairs = {}
+    for i, lv in enumerate(levels):
         s = set(lv)
-        pairs.append(sum((x + a, y + b, z + c) in s for x, y, z in lv
-                         for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1)))
+        pairs[(i, 3)] = sum((x + a, y + b, z + c) in s for x, y, z in lv
+                            for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
     out = {"cells": [len(lv) for lv in levels], "pairs": pairs, "down": down}
     if "patch_size" in cfg:
         p = cfg["patch_size"]
@@ -104,7 +104,7 @@ def test_bench_mixes_keep_the_work_counts():
     """The mixes' coordinate range and translation step are powers of two
     of at least 16, so every stride-2**l level (l <= 4) and every 4^3 patch
     keep their cells under the augmentation."""
-    for name in ("train", "infer"):
+    for name in {w["traffic"] for w in spec.benchmark_file()["workloads"]}:
         mix = spec.traffic(name)
         step, top = mix["augment"]["translate_step"], mix["coord_range"]
         assert step % 16 == 0 and top >= 16 and top & (top - 1) == 0
@@ -264,6 +264,16 @@ def test_nothing_imports_jax_or_the_jax_package_and_references_import_no_program
                     path, mod)
                 if "models" in path.split(os.sep) or "metrics" in path.split(os.sep):
                     assert top != "warpconvnet_tpu_torch", (path, mod)
+
+
+def test_jax_in_the_process_is_found_by_whole_top_level_names():
+    from benchmark import run
+
+    loaded = {"jax": 0, "jax.numpy": 0, "jaxlib.xla_client": 0, "flax.linen": 0,
+              "warpconvnet_tpu": 0, "warpconvnet_tpu.ops": 0, "warpconvnet_tpu_torch": 0,
+              "warpconvnet_tpu_torch.ops": 0, "jaxtyping": 0, "torch": 0}
+    assert run.jax_modules(loaded) == ["flax.linen", "jax", "jax.numpy", "jaxlib.xla_client",
+                                       "warpconvnet_tpu", "warpconvnet_tpu.ops"]
 
 
 def test_run_exits_without_a_card():
