@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch port on an H100: MinkUNet18 inference and
-training, the depthwise / grouped conv path (a SparseConvNeXtBlock), and
-Volt-s inference and training (segment attention and its backward).
+training, the depthwise / grouped conv path (a SparseConvNeXtBlock), Volt-s
+inference and training (segment attention and its backward), and Point
+Transformer V3's kernel shapes and training.
 
     python3 chip_smoke.py                  # the smoke run below
     python3 chip_smoke.py --profile DIR    # profile a MinkUNet18 train step, a ConvNeXt
@@ -95,6 +96,25 @@ Phases (any failure exits non-zero):
      gradients and parameters against the plain path; a
      small fp32 Volt step checks the kernels tightly. Logs step ms,
      points/s, tokens/s and peak memory.
+ 16. PTv3 shapes: a bench scene pair of 6 channels (n_cap 262144) at PTv3's
+     five levels (stride-2 grid max pooling). K2 and K4 (bf16, in the maps'
+     row orders) on the 5^3 stem map at C 6 -> 32 and on each level's 3^3
+     map at its positional conv's width (32 to 512); K9, K9-dkv and K9-dq
+     (fp32) at level 0's patch shape [2, 262144, 2, 16], 1024-row patches
+     of the valid rows and the pad rows on ids that match nothing
+     (``patch_segment_ids``). Each against its plain version, timed beside
+     its bound; pad rows' outputs and dq zero, and K9's visited kv tiles
+     within 1.1x those of the valid rows alone.
+ 17. ptv3 train: PTv3 at its published widths (bf16 stem and positional
+     convs, fp32 trunk and parameters, seeded weights and labels, Adam
+     1e-3) takes 5 steps on a bench scene pair of 6 channels at n_cap
+     262144. Checks 6 K1, 23 K2, 23 K4, 22 K9, 22 K9-dkv and 22 K9-dq
+     launches per step, a finite loss and a finite grad on every parameter
+     and a loss falling from step 2 on; first, a small fp32 PTv3 step (the
+     published depths at small widths, 64-row patches) against the plain
+     path checks the kernels tightly (phase 16 holds the bench scale's
+     shapes to their plain versions, whose attention does not fit beside a
+     bench-scale step). Logs step ms, points/s and peak memory.
 Prints one JSON line of per-kernel results (time, plain time, bound from
 the bytes and operations of this run's inputs, the time of a one-call
 PyTorch equivalent where one exists, launches on the main paths), then the
@@ -216,6 +236,29 @@ VOLT_TRAIN_TOL = {
     torch.float32: dict(loss=2e-7, grads=7.5e-7),
     torch.bfloat16: dict(loss=2e-7, grads=1.8e-4),
 }
+# Point Transformer V3 at its published widths (models/point_transformer_v3.py)
+# on a bench scene pair of 6 input channels padded to PTV3_N_CAP rows a scene,
+# five levels at capacities n_cap >> level.
+PTV3_N_CAP = 1 << 18
+PTV3_IN = 6
+PTV3_WIDTHS = (32, 64, 128, 256, 512)
+PTV3_PATCH = 1024
+# Positional (xCPE) convs a step at each level: the encoder's blocks and
+# the decoder's.
+PTV3_CPE = (4, 4, 4, 8, 2)
+PTV3_TRAIN_STEPS = 5
+# A PTv3 step: K1 builds the 5^3 stem map and each level's 3^3 map; the stem
+# and the 22 blocks' positional convs run K2 forward and K4 backward; the 22
+# blocks' patch attention K9, K9-dkv and K9-dq.
+PTV3_PER_STEP = dict(k1=6, fwd=23, fused=23, attn=22, dkv=22, dq=22)
+# PTv3 step 1 on the kernel path against the plain path, same card, same
+# state (the rules of TRAIN_TOL), fp32, the published depths at small widths
+# and 64-row patches: the same sums in another order (measured: loss equal,
+# gradients 3.2e-6, worst BN and dense biases, sums that cancel; run-to-run
+# 2.0e-7 from K4's atomics). Bounds about 3x (H100 80GB HBM3, 700 W). At the
+# bench scale the plain path's attention does not fit beside the step's
+# activations (its chunk's scores over all 262144 rows ran out of memory).
+PTV3_TRAIN_TOL = dict(loss=2e-7, grads=1e-5)
 # Bounds (H100 SXM datasheet figures): HBM rate, and
 # dense peaks by the inputs' type (fp32: the CUDA cores' FMA).
 HBM_BYTES_PER_S = 3.35e12
@@ -1867,6 +1910,214 @@ def phase_volt_train(device):
     return totals
 
 
+def ptv3_levels(vox):
+    """The bench pair at PTv3's five levels: stride-2 grid max pooling at
+    capacities n_cap >> level, as the model pools."""
+    from warpconvnet_tpu_torch.nn.functional.sparse_pool import sparse_max_pool
+
+    out = [vox]
+    for i in range(1, len(PTV3_WIDTHS)):
+        out.append(sparse_max_pool(out[-1], 2, 2, out_capacity=vox.max_num_points >> i)[0])
+    return out
+
+
+def phase_ptv3_shapes(vox):
+    """PTv3's kernel shapes on the bench pair ``vox`` (6 channels, n_cap
+    PTV3_N_CAP), each against its plain version and timed beside its bound:
+    K2 and K4 (bf16, in the maps' row orders) on the 5^3 stem map at C 6 ->
+    32 and on each level's 3^3 map at its positional conv's width; K9, K9-dkv
+    and K9-dq (fp32, as training runs them) at level 0's patch shape [B,
+    n_cap, 2, 16], segments of 1024 rows of the valid rows and the pad rows
+    on ids of their own (``patch_segment_ids``), with the kv tiles K9 visits
+    against those of the valid rows alone. Returns {kind: entry} for the
+    kernels' JSON line."""
+    from warpconvnet_tpu_torch.kernels import implicit_gemm as ig
+    from warpconvnet_tpu_torch.kernels import segment_attention as k9
+    from warpconvnet_tpu_torch.nn.functional.flash_attention import patch_segment_ids
+    from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
+        generate_output_coords_and_kernel_map,
+    )
+
+    dt = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    levels = ptv3_levels(vox)
+    log(f"PTv3 bench pair: valid rows by level {[v.num_valid.tolist() for v in levels]}")
+    convs = [("stem 5^3 L0", levels[0], 5, PTV3_IN, PTV3_WIDTHS[0], 1)]
+    convs += [(f"xCPE 3^3 L{i}", v, 3, PTV3_WIDTHS[i], PTV3_WIDTHS[i], PTV3_CPE[i])
+              for i, v in enumerate(levels)]
+    results = dict(fwd=[], fused=[])
+    for label, v, ks, c_in, c_out, per_step in convs:
+        sub = generate_output_coords_and_kernel_map(v, ks)[2].with_orders()
+        b, k, n = sub.table.shape
+        pairs = int((sub.table >= 0).sum())
+        flops = 2.0 * pairs * c_in * c_out
+        x = torch.randn((b, n, c_in), generator=gen, device="cuda")
+        x = torch.where(v.valid_mask()[..., None], x, 0).to(dt)
+        w = (torch.randn((k, c_in, c_out), generator=gen, device="cuda") / (k * c_in) ** 0.5)
+        w = w.to(dt)
+        g = (torch.randn((b, n, c_out), generator=gen, device="cuda") / 300).to(dt)
+        got = ig.implicit_gemm_fwd(x, w, sub.table, order=sub.order)
+        ref = ig.implicit_gemm_fwd_plain(x, w, sub.table)
+        dx, dw = ig.implicit_gemm_bwd_fused(x, g, w, sub.table, sub.offsets, order=sub.order)
+        ref_dx, ref_dw = ig.implicit_gemm_bwd_fused_plain(x, g, w, sub.table, sub.offsets)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), ref.float(), **K2_TOL[dt])
+        torch.testing.assert_close(dx.float(), ref_dx.float(), **K2_TOL[dt])
+        dw_err = rel_err(dw, ref_dw)
+        check(dw_err <= DW_TOL, f"K4 PTv3 {label}: dw relative error {dw_err:.3e} > {DW_TOL}")
+        rows = {}
+        for kind, fn, plain, nb, f in (
+                ("fwd", lambda: ig.implicit_gemm_fwd(x, w, sub.table, order=sub.order),
+                 lambda: ig.implicit_gemm_fwd_plain(x, w, sub.table),
+                 nbytes(x, w, sub.table, got), flops),
+                ("fused", lambda: ig.implicit_gemm_bwd_fused(x, g, w, sub.table, sub.offsets,
+                                                             order=sub.order),
+                 lambda: ig.implicit_gemm_bwd_fused_plain(x, g, w, sub.table, sub.offsets),
+                 nbytes(x, g, w, sub.table, dx, dw), 2 * flops)):
+            ms = cuda_ms(fn)
+            plain_ms = cuda_ms(plain, iters=3, warmup=1)
+            b_ms, b_by = bound(nb, f, dt)
+            rows[kind] = dict(shape=f"{label} {c_in}->{c_out}", k=k, rows=n, pairs=pairs,
+                              launches_per_step=per_step, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by)
+            results[kind].append(rows[kind])
+        results["fused"][-1]["dw_rel_err"] = dw_err
+        log(f"PTv3 {label} {c_in}->{c_out} bf16 ({per_step} a step, {pairs} pairs): K2 "
+            f"{rows['fwd']['ms']:.4f} ms (plain {rows['fwd']['plain_ms']:.4f}, bound "
+            f"{rows['fwd']['bound_ms']:.4f}), K4 {rows['fused']['ms']:.4f} ms (plain "
+            f"{rows['fused']['plain_ms']:.4f}, bound {rows['fused']['bound_ms']:.4f}); dw rel err "
+            f"{dw_err:.3e}")
+        del x, w, g, got, ref, dx, dw, ref_dx, ref_dw, sub
+    for kind, name in (("fwd", "K2"), ("fused", "K4")):
+        rows = results[kind]
+        log(f"{name} over a PTv3 step's conv shapes: {sum(r['launches_per_step'] for r in rows)} "
+            f"launches, {sum(r['ms'] * r['launches_per_step'] for r in rows):.4f} ms by the "
+            f"shapes' times, bound {sum(r['bound_ms'] * r['launches_per_step'] for r in rows):.4f}"
+            f" ms; card {card_name()}")
+
+    v0 = levels[0]
+    b, n, h, d = v0.batch_size, v0.max_num_points, PTV3_WIDTHS[0] // 16, 16
+    seg_q, seg_kv = patch_segment_ids(v0.num_valid, n, PTV3_PATCH)
+    pad = seg_q != seg_kv
+    q, k, v = (torch.randn((b, n, h, d), generator=gen, device="cuda") for _ in "qkv")
+    q = q * 2.5
+    # The caller (Attention) zeroes pad outputs, so dO is zero there.
+    do = torch.where(pad[..., None, None], 0, torch.randn((b, n, h, d), generator=gen,
+                                                          device="cuda"))
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    ref, ref_lse = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, return_lse=True)
+    di = k9.rowsum_o_do(out, do)
+    args = (q, k, v, do, lse, di, seg_q, seg_kv)
+    dk, dv = k9.segment_attention_bwd_dkv(*args)
+    dq = k9.segment_attention_bwd_dq(*args)
+    ref_grads = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    tol = K9_TOL[torch.float32]
+    err = rel_err(out, ref)
+    max_abs, scale = float((out - ref).abs().max()), float(ref.abs().max())
+    check(err <= tol and max_abs <= tol * scale, f"K9 PTv3 L0 patches: relative error "
+          f"{err:.3e}, max abs {max_abs:.3e} (largest {scale:.3e}) > {tol}")
+    finite = torch.isfinite(ref_lse)
+    check(torch.equal(torch.isfinite(lse), finite), "K9 PTv3 L0: lse +inf on other rows")
+    lse_err = rel_err(lse[finite], ref_lse[finite])
+    check(lse_err <= tol, f"K9 PTv3 L0 patches: lse relative error {lse_err:.3e} > {tol}")
+    check(bool((out[pad] == 0).all()) and bool((dq[pad] == 0).all()),
+          "K9 PTv3 L0: a pad row's output or dq is not zero")
+    errs = [rel_err(g, r) for g, r in zip((dq, dk, dv), ref_grads)]
+    check(max(errs) <= K9_BWD_TOL[torch.float32],
+          f"K9-bwd PTv3 L0 patches: dq, dk, dv relative errors {errs} > "
+          f"{K9_BWD_TOL[torch.float32]}")
+    del ref, ref_lse, ref_grads
+    visited, tiles = k9.kv_tiles_visited(seg_q, seg_kv)
+    alone = sum(k9.kv_tiles_visited(seg_q[i:i + 1, :m], seg_kv[i:i + 1, :m])[0]
+                for i, m in enumerate(v0.num_valid.tolist()))
+    check(visited <= 1.1 * alone, f"K9 PTv3 L0: {visited} kv tiles visited, the valid rows "
+          f"alone {alone}")
+    pairs = equal_segment_pairs(seg_q, seg_kv)
+    inputs = nbytes(q, k, v, seg_q, seg_kv)
+    shape = (f"B={b} S={n} H={h} D={d} fp32, {PTV3_PATCH}-row patches of "
+             f"{v0.num_valid.tolist()} valid rows (PTv3 level 0; 4 of the 22 blocks a step)")
+    entries = {}
+    for kind, fn, nb, f in (
+            ("attn", lambda: k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True),
+             inputs + nbytes(out, lse), 4.0 * pairs * d * h),
+            ("dkv", lambda: k9.segment_attention_bwd_dkv(*args),
+             inputs + nbytes(do, lse, di, dk, dv), 8.0 * pairs * d * h),
+            ("dq", lambda: k9.segment_attention_bwd_dq(*args),
+             inputs + nbytes(do, lse, di, dq), 6.0 * pairs * d * h)):
+        ms = cuda_ms(fn, iters=5, warmup=1)
+        b_ms, b_by = bound(nb, f, peak=TF32X3_FLOPS)
+        entries[kind] = dict(shape=shape, ms=ms, bound_ms=b_ms, bound_by=b_by)
+    entries["attn"].update(rel_err=err, max_abs_err=max_abs, lse_rel_err=lse_err,
+                           kv_tiles_visited=visited, kv_tiles=tiles, kv_tiles_valid_alone=alone)
+    entries["dkv"]["rel_err"], entries["dq"]["rel_err"] = max(errs[1:]), errs[0]
+    log(f"PTv3 patch attention {shape}: K9 {entries['attn']['ms']:.4f} ms (bound "
+        f"{entries['attn']['bound_ms']:.4f}), K9-dkv {entries['dkv']['ms']:.4f} ms (bound "
+        f"{entries['dkv']['bound_ms']:.4f}), K9-dq {entries['dq']['ms']:.4f} ms (bound "
+        f"{entries['dq']['bound_ms']:.4f}) on {pairs} equal-segment pairs; rel err out {err:.3e}, "
+        f"lse {lse_err:.3e}, dq {errs[0]:.3e}, dk {errs[1]:.3e}, dv {errs[2]:.3e}; kv tiles "
+        f"visited {visited} of {tiles}, the valid rows alone {alone}; card {card_state()}")
+    return dict(fwd=results["fwd"], fused=results["fused"], **entries)
+
+
+def phase_ptv3_train(device):
+    """PTv3 training: a small fp32 step (the published depths at small
+    widths) against the plain path, then PTV3_TRAIN_STEPS bench-scale steps
+    at the published widths on the kernel path. Returns the bench-scale
+    steps' launches."""
+    from warpconvnet_tpu_torch import constants
+    from warpconvnet_tpu_torch.models.point_transformer_v3 import build_ptv3
+
+    keys = tuple(wrappers())
+
+    def snapshot(model):
+        return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+                {n: p.detach().clone() for n, p in model.named_parameters()})
+
+    small_model = build_ptv3(PTV3_IN, NUM_CLASSES, patch_size=64, device=device,
+                             generator=torch.Generator().manual_seed(1),
+                             enc_channels=(16, 16, 32, 32, 32), enc_num_head=(1, 1, 2, 2, 2),
+                             dec_channels=(16, 16, 32, 32), dec_num_head=(1, 1, 2, 2))
+    state0, params0 = snapshot(small_model)
+    small = make_batch(600, 4096, device, channels=PTV3_IN).lex_sort()
+    small_labels = labels_for(small, 601)
+    runs = [train_steps(small_model, state0, small, small_labels, 1, plain, keys)[3]
+            for plain in (False, False, True)]
+    compare_first_steps(runs[0], runs[2], runs[1], params0, torch.float32,
+                        "ptv3 train fp32 (small widths, patch 64, n_cap 4096)", PTV3_TRAIN_TOL)
+    del small_model, runs
+
+    model = build_ptv3(PTV3_IN, NUM_CLASSES, device=device,
+                       generator=torch.Generator().manual_seed(0))
+    state0 = snapshot(model)[0]
+    batch = make_batch(9, PTV3_N_CAP, device, channels=PTV3_IN).lex_sort()
+    labels = labels_for(batch, 10)
+    points = int(batch.num_valid.sum())
+    constants.set_compute_dtype(torch.bfloat16)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, ms, launches, _ = train_steps(model, state0, batch, labels, PTV3_TRAIN_STEPS,
+                                              plain=False, keys=keys)
+        totals = all_counts(keys)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        constants.set_compute_dtype(None)
+    log(f"ptv3 train bf16 conv compute, fp32 trunk: {batch.num_valid.tolist()} voxels; losses "
+        f"{losses}")
+    want = {k: PTV3_PER_STEP.get(k, 0) for k in keys}
+    for i, per in enumerate(launches):
+        check(per == want, f"ptv3 step {i}: launches {per}, want {want}")
+    check(losses[-1] < losses[1], f"ptv3 loss did not fall after step 2: {losses}")
+    steady = ms[1:]
+    secs = sum(steady) / 1e3
+    log(f"ptv3 train: step ms (steps 2-{PTV3_TRAIN_STEPS}) {[round(t, 3) for t in steady]}; "
+        f"step 1 {ms[0]:.3f}; {points * len(steady) / secs:.1f} points/s; peak memory "
+        f"{peak / 2**30:.3f} GiB; launches over {PTV3_TRAIN_STEPS} steps "
+        f"{ {k: n for k, n in totals.items() if n} }; card {card_state()}")
+    return totals
+
+
 def profile_run(label, fn, out_dir, trace_name):
     """Profile one call of ``fn`` (after the caller's warm-up): device time
     by kernel, the device span and its idle share, read from the exported
@@ -2005,9 +2256,14 @@ def main() -> int:
         k9_bwd = phase_k9_bwd(tokens)
         paths[f"Volt-s inference ({REQUESTS} requests)"] = phase_volt(device)
         paths[f"Volt-s train ({VOLT_TRAIN_STEPS} steps)"] = phase_volt_train(device)
+        ptv3 = phase_ptv3_shapes(make_batch(0, PTV3_N_CAP, device, channels=PTV3_IN).lex_sort())
+        paths[f"PTv3 train ({PTV3_TRAIN_STEPS} steps)"] = phase_ptv3_train(device)
     tiles, wide = gained["k1.tiles"], gained["k1.wide_tiles"]
     log(f"K1 over the main-path phases: {wide} of {tiles} tiles walked in device memory")
     k1["main_paths_global_share"] = wide / tiles
+    k2["ptv3_shapes"], bwd["fused"]["ptv3_shapes"] = ptv3["fwd"], ptv3["fused"]
+    for key, entry in (("attn", k9), ("dkv", k9_bwd["dkv"]), ("dq", k9_bwd["dq"])):
+        entry["ptv3_patches"] = ptv3[key]
     entries = dict(k1=k1, fwd=k2, **bwd, **depth, attn=k9, **k9_bwd)
     for key, entry in entries.items():
         by_path = {p: c[key] for p, c in paths.items() if c[key]}

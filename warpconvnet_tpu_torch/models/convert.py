@@ -1,6 +1,6 @@
 """Carry JAX variables over to the port's modules: a MinkUNet, a Volt, a
-``SparseConvNeXtBlock``, and a single sparse conv (dense, grouped or
-depthwise).
+Point Transformer V3, a ``SparseConvNeXtBlock``, and a single sparse conv
+(dense, grouped or depthwise).
 
 The JAX package's flax tree ``{"params": ..., "batch_stats": ...}`` names a
 layer by scope and creation order (``block1_0/SparseConv3d_2/kernel``);
@@ -201,6 +201,73 @@ def volt_variables_to_state_dict(
     out = {}
     for path, value in _flatten(variables):
         name, transpose = _volt_name(path, top_norms)
+        out[name] = _leaf(value, transpose)
+    return _checked(out, model)
+
+
+# Inside a JAX PatchAttentionBlock scope (enc{i}_blk{d}, dec{i}_blk{d}):
+# path below the scope -> (port name below enc.{i}.{d} / dec.{i}.{d}, flax
+# Dense kernel to transpose).
+_PTV3_BLOCK = {
+    ("cpe_conv", "kernel"): ("cpe_conv.weight", False),
+    ("cpe_conv", "bias"): ("cpe_conv.bias", False),
+    ("cpe_proj", "kernel"): ("cpe_proj.weight", True),
+    ("cpe_proj", "bias"): ("cpe_proj.bias", False),
+    ("cpe_norm", "scale"): ("cpe_norm.weight", False),
+    ("cpe_norm", "bias"): ("cpe_norm.bias", False),
+    ("LayerNorm_0", "scale"): ("norm1.weight", False),
+    ("LayerNorm_0", "bias"): ("norm1.bias", False),
+    ("attn", "attn", "qkv", "kernel"): ("attn.attn.qkv.weight", False),  # [3, C, C] as it is
+    ("attn", "attn", "qkv", "bias"): ("attn.attn.qkv.bias", False),
+    ("attn", "attn", "proj", "kernel"): ("attn.attn.proj.weight", True),
+    ("attn", "attn", "proj", "bias"): ("attn.attn.proj.bias", False),
+    ("LayerNorm_1", "scale"): ("norm2.weight", False),
+    ("LayerNorm_1", "bias"): ("norm2.bias", False),
+    ("Dense_0", "kernel"): ("fc1.weight", True),
+    ("Dense_0", "bias"): ("fc1.bias", False),
+    ("Dense_1", "kernel"): ("fc2.weight", True),
+    ("Dense_1", "bias"): ("fc2.bias", False),
+}
+# Norms and dense layers by scope: JAX scope pattern -> port prefix.
+_PTV3_SCOPES = (
+    (r"stem", "stem"),
+    (r"stem_norm", "stem_norm"),
+    (r"down(\d+)_proj", "down.{0}.proj"),
+    (r"down(\d+)_norm", "down.{0}.norm"),
+    (r"up(\d+)/(proj|proj_norm|proj_skip|skip_norm)", "up.{0}.{1}"),
+    (r"final", "final"),
+)
+
+
+def _ptv3_name(path):
+    collection, *scopes, leaf = path
+    block = re.fullmatch(r"(enc|dec)(\d+)_blk(\d+)", scopes[0]) if scopes else None
+    if collection == "params" and block and (*scopes[1:], leaf) in _PTV3_BLOCK:
+        name, transpose = _PTV3_BLOCK[(*scopes[1:], leaf)]
+        return f"{block[1]}.{block[2]}.{block[3]}.{name}", transpose
+    attr = _LEAF.get((collection, leaf))
+    for pattern, prefix in _PTV3_SCOPES:
+        m = re.fullmatch(pattern, "/".join(scopes))
+        if m and attr is not None:
+            dense_kernel = leaf == "kernel" and not prefix.startswith("stem")
+            return f"{prefix.format(*m.groups())}.{attr}", dense_kernel
+    raise KeyError(f"unmapped variable {'/'.join(path)}")
+
+
+def ptv3_variables_to_state_dict(
+    variables: Mapping, model: Optional[nn.Module] = None
+) -> Dict[str, torch.Tensor]:
+    """Map a JAX ``PointTransformerV3`` variable tree (``{"params": ...,
+    "batch_stats": ...}``, a tree of one collection such as gradients, or a
+    JAX ``TrainState`` after a step, whose ``params`` and ``batch_stats``
+    are taken) onto the port's :class:`PointTransformerV3` names. Raises on
+    an unmapped variable; given ``model``, also on missing entries and
+    shape mismatches."""
+    if hasattr(variables, "params") and hasattr(variables, "batch_stats"):
+        variables = {"params": variables.params, "batch_stats": variables.batch_stats}
+    out = {}
+    for path, value in _flatten(variables):
+        name, transpose = _ptv3_name(path)
         out[name] = _leaf(value, transpose)
     return _checked(out, model)
 

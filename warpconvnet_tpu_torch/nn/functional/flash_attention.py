@@ -45,6 +45,23 @@ def segment_ids_from_groups(
     return seg
 
 
+def patch_segment_ids(num_valid: torch.Tensor, n: int, patch: int):
+    """(seg_q, seg_kv) int32 [B, n] for rows in serialized order, the first
+    ``num_valid[b]`` of scene b valid: valid row r is in patch ``r //
+    patch`` on both sides. Pad rows take ids above every patch's, one per
+    ``patch`` rows, that never match: ``base + 2j`` as queries and ``base +
+    2j + 1`` as keys. So a query tile of pad rows within one such block
+    visits no kv tile (K9 visits the kv tiles holding an id inside the
+    query tile's [min, max]; query tiles divide ``patch``), and the tile at
+    the valid/pad boundary reaches no pad key, where one shared pad id
+    would make every pad row attend to every other."""
+    rows = torch.arange(n, device=num_valid.device)
+    valid = rows[None, :] < num_valid[:, None]
+    pad = -(-n // patch) + 2 * (rows // patch)
+    seg_q = torch.where(valid, rows // patch, pad).to(torch.int32)
+    return seg_q, torch.where(valid, seg_q, pad + 1).to(torch.int32)
+
+
 def attn_detail(q: torch.Tensor, k: torch.Tensor) -> str:
     """An attention span's detail: ``B S H D dtype`` (S as ``Sq->Skv`` where
     they differ)."""

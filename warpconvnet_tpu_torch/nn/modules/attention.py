@@ -1,27 +1,32 @@
 """Attention modules (counterpart of ``warpconvnet_tpu/nn/modules/attention.py``):
 :class:`Attention` (fused QKV through :class:`BatchedLinear`, optional 3D
-RoPE), :class:`FeedForward` and :class:`TransformerBlock`. Numerics follow
-flax: LayerNorm eps 1e-6 in fp32, tanh GELU (``jax.nn.gelu``'s default).
+RoPE), :class:`FeedForward`, :class:`TransformerBlock`, and
+:func:`serialize_patches` with :class:`PatchAttention` (Morton-serialized
+patch attention, PTv3's). Numerics follow flax: LayerNorm eps 1e-6 in
+fp32, tanh GELU (``jax.nn.gelu``'s default).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from warpconvnet_tpu_torch import constants
+from warpconvnet_tpu_torch.geometry.voxels import Voxels
 from warpconvnet_tpu_torch.nn.functional.attention import apply_rope, masked_sdpa, rope_3d_phases
 from warpconvnet_tpu_torch.nn.functional.flash_attention import (
+    patch_segment_ids,
     segment_attention,
     segment_ids_from_groups,
     segment_ids_from_valid,
 )
 from warpconvnet_tpu_torch.nn.modules.mlp import BatchedLinear, dense
 from warpconvnet_tpu_torch.nn.modules.norms import LayerNorm
+from warpconvnet_tpu_torch.ops.morton import morton_argsort
 
 
 class Attention(nn.Module):
@@ -29,11 +34,13 @@ class Attention(nn.Module):
     ``Attention``, ``attention.py:34-95``), Q/K/V from one [3, C, C]
     :class:`BatchedLinear` (JAX's default and its only use).
 
-    ``forward(x, row_valid, coords, pair_mask, segment_ids)``: with
-    ``pair_mask`` the score-matrix path :func:`masked_sdpa`; otherwise
-    :func:`segment_attention` over the segments from ``segment_ids`` or
-    ``row_valid`` (K9 on the card), with pad outputs zeroed. RoPE on
-    ``coords`` when ``rope_base`` is set.
+    ``forward(x, row_valid, coords, pair_mask, segment_ids,
+    kv_segment_ids)``: with ``pair_mask`` the score-matrix path
+    :func:`masked_sdpa`; otherwise :func:`segment_attention` over the
+    segments from ``segment_ids`` or ``row_valid`` (K9 on the card), with
+    pad outputs zeroed; ``kv_segment_ids`` gives the keys ids of their own
+    (the queries keep ``segment_ids``). RoPE on ``coords`` when
+    ``rope_base`` is set.
     """
 
     def __init__(
@@ -58,6 +65,7 @@ class Attention(nn.Module):
         coords: Optional[torch.Tensor] = None,
         pair_mask: Optional[torch.Tensor] = None,
         segment_ids: Optional[torch.Tensor] = None,
+        kv_segment_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         h = self.num_heads
         d = self.dim // h
@@ -80,9 +88,10 @@ class Attention(nn.Module):
             else:
                 seg = torch.zeros(x.shape[:-1], dtype=torch.int32, device=x.device)
             bs, s = math.prod(x.shape[:-2]), x.shape[-2]
+            seg_kv = None if kv_segment_ids is None else kv_segment_ids.reshape(bs, s)
             out = segment_attention(
                 q.reshape(bs, s, h, d), k.reshape(bs, s, h, d), v.reshape(bs, s, h, d),
-                seg.reshape(bs, s),
+                seg.reshape(bs, s), seg_kv,
             ).reshape(q.shape)
             if row_valid is not None:
                 out = torch.where(row_valid[..., None, None], out, 0)
@@ -134,3 +143,55 @@ class TransformerBlock(nn.Module):
         if row_valid is not None:
             x = torch.where(row_valid[..., None], x, 0)
         return x
+
+
+def serialize_patches(
+    coords: torch.Tensor, num_valid: torch.Tensor, order: Sequence[int] = (0, 1, 2)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-scene Morton permutation and its inverse (JAX
+    ``serialize_patches``, the coordinate columns taken in ``order``) of
+    coords [B, N, 3] whose first ``num_valid[b]`` rows are valid: each
+    scene's valid coords shifted by their per-axis minimum, valid rows
+    first in Morton order, pad rows last. int64 [B, N] each."""
+    valid = torch.arange(coords.shape[1], device=coords.device)[None, :] < num_valid[:, None]
+    big = torch.iinfo(coords.dtype).max
+    cmin = torch.where(valid[..., None], coords, big).amin(dim=1, keepdim=True)
+    return morton_argsort(coords - cmin, valid, order)
+
+
+class PatchAttention(nn.Module):
+    """Serialized patch attention (JAX ``PatchAttention``,
+    ``attention.py:178-212``; PTv3's core op): each scene's rows in a
+    Morton order, attention within consecutive ``patch_size``-row patches
+    of its valid rows (the last one partial), rows put back, pad rows zero.
+
+    One :func:`segment_attention` call over [B, N, H, D] whose segment is
+    the serialized rank // ``patch_size`` (:func:`patch_segment_ids`), where
+    the JAX package reshapes into [B, N/P, P] patches.
+    ``forward(geometry, serialization)`` takes the ``(perm, inverse)`` of
+    :func:`serialize_patches`, which a model shares among the blocks that
+    use the same order on the same coordinates.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        patch_size: int = 1024,
+        num_heads: int = 8,
+        device: constants.Device = constants.DEFAULT_DEVICE,
+        generator: Optional[torch.Generator] = None,
+    ):
+        super().__init__()
+        self.patch_size = patch_size
+        self.attn = Attention(dim, num_heads, device=device, generator=generator)
+
+    def forward(self, geometry: Voxels, serialization: Tuple[torch.Tensor, torch.Tensor]) -> Voxels:
+        perm, inverse = serialization
+        c = geometry.features.shape[-1]
+        # Indices broadcast by expand: the backward keeps a [B, N] index,
+        # where take_along_dim would keep it copied out to [B, N, C].
+        x = torch.gather(geometry.features, 1, perm[..., None].expand(-1, -1, c))
+        seg_q, seg_kv = patch_segment_ids(geometry.num_valid, x.shape[1], self.patch_size)
+        out = self.attn(x, segment_ids=seg_q, kv_segment_ids=seg_kv)
+        out = torch.gather(out, 1, inverse[..., None].expand(-1, -1, c))
+        return geometry.replace(features=torch.where(geometry.valid_mask()[..., None], out, 0))
