@@ -1392,6 +1392,35 @@ def k9_split_reuse(k9, q, k, v, seg_q, seg_kv):
                 split_rows=rows, staged_rows=staged, split_reuse=staged / rows)
 
 
+def k9_bwd_split_reuse(k9, args):
+    """One fp32 K9-dkv and K9-dq pair's scratch bytes as each call
+    allocated them (``tracing`` ``k9.bwd_scratch_bytes``; alive in turn),
+    the visited rows they split and their blocks copied in
+    (``k9.bwd_split_rows``, ``k9.bwd_staged_rows``) and the ratio, the
+    reuse of each split; checks that each visited row of each head was
+    split once and that neither call's scratch passed the cap."""
+    from warpconvnet_tpu_torch import tracing
+
+    q, k = args[0], args[1]
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    rows0 = tracing.counters().get("k9.bwd_split_rows", 0)
+    scratch = []
+    with device_counts("cuda") as gained:
+        for fn in (k9.segment_attention_bwd_dkv, k9.segment_attention_bwd_dq):
+            bytes0 = tracing.counters().get("k9.bwd_scratch_bytes", 0)
+            fn(*args)
+            scratch.append(tracing.counters()["k9.bwd_scratch_bytes"] - bytes0)
+    rows = tracing.counters()["k9.bwd_split_rows"] - rows0
+    check(rows == b * h * (sq + skv),
+          f"K9-bwd: split {rows} rows, not B H (Sq + Skv) = {b * h * (sq + skv)}")
+    check(max(scratch) <= k9.SPLIT_SCRATCH_BYTES,
+          f"K9-bwd: scratch bytes {scratch} over the cap {k9.SPLIT_SCRATCH_BYTES}")
+    staged = gained["k9.bwd_staged_rows"]
+    return dict(scratch_bytes_dkv_dq=scratch, split_rows=rows, staged_rows=staged,
+                split_reuse=staged / rows)
+
+
 def phase_k9(tokens):
     """K9 against its plain version at Volt-s's trunk shape (validity from
     the real token counts ``tokens``), fp32 and bf16, and on a grouped
@@ -1558,6 +1587,7 @@ def phase_k9_bwd(tokens):
                 max_abs.append(float((g.float() - r.float()).abs().max()))
                 check(errs[-1] <= K9_BWD_TOL[dtype], f"K9-bwd {name} {str(dtype)[6:]}: {label} "
                       f"relative error {errs[-1]:.3e} > {K9_BWD_TOL[dtype]}")
+            split = k9_bwd_split_reuse(k9, args) if dtype == torch.float32 else None
             empty = ~torch.isfinite(lse[:, 0])
             check(bool((dq[empty] == 0).all()), f"K9-bwd {name}: unmatched rows' dq not zero")
             check(not name.endswith("unmatched") or bool(empty.any()),
@@ -1592,7 +1622,7 @@ def phase_k9_bwd(tokens):
                 f"({tflops:.2f} TFLOP/s of the kernels' 14 D a pair on {pairs} equal-segment "
                 f"pairs), function bound {fn_bd[0]:.4f} ms ({fn_bd[1]}, 10 D a pair); plain "
                 f"{plain_txt}, sdpa backward {lib_txt}; {int(empty.sum())} unmatched query "
-                f"rows; card {card_state()}")
+                f"rows; split {split}; card {card_state()}")
             if name != "global":
                 continue
             common = dict(
@@ -1610,6 +1640,7 @@ def phase_k9_bwd(tokens):
                                bound_ms=dq_bd[0], bound_by=dq_bd[1]))
             if dtype == torch.float32:
                 res["dkv"]["fma_bound_ms"], res["dq"]["fma_bound_ms"] = fma_bd
+                common.update(split)
                 entries["dkv"] = dict(
                     name="segment_attention_bwd_dkv",
                     replaces="jax/experimental/pallas/ops/tpu/flash_attention.py:796",

@@ -1206,6 +1206,129 @@ def test_k9_bwd_reads_strided_qkv(cuda):
         assert _rel(g, r) <= K9_BWD_TOL[torch.float32]
 
 
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("sq,skv", [(4097, 4097), (300, 40959), (40959, 300), (200000, 300)])
+def test_k9_bwd_fp32_takes_lengths_off_its_step(cuda, sq, skv, d):
+    """fp32 K9-dkv and K9-dq where Sq and Skv are not multiples of their
+    visited step (nor of a tile): the last step's rows past the end are
+    padding in the split scratch. Self-attention at 4097 rows, and cross
+    attention of 300 query rows over 40959 kv rows and back; three
+    segments, the last 5 kv rows in none the queries have. 200000 query
+    rows: at D 64 K9-dkv's bitmask of visited query tiles leaves room for
+    two ring slots, not three. Against the plain backward (K9_BWD_TOL) and a
+    float64 one (K9_BWD_FP64_TOL)."""
+    gen = torch.Generator(device=cuda).manual_seed(sq + skv + d)
+    seg_kv = (torch.arange(skv, device=cuda) * 3 // skv).to(torch.int32)
+    seg_kv[-5:] = 9
+    seg_kv = seg_kv.repeat(2, 1)
+    seg_q = seg_kv.clone() if sq == skv else torch.sort(
+        torch.randint(0, 3, (2, sq), generator=gen, device=cuda, dtype=torch.int32))[0]
+    q = torch.randn((2, sq, 2, d), generator=gen, device=cuda) * 2
+    k, v = (torch.randn((2, skv, 2, d), generator=gen, device=cuda) for _ in "kv")
+    do = torch.randn((2, sq, 2, d), generator=gen, device=cuda)
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
+    x64 = [t.double() for t in (q, k, v)]
+    o64, lse64 = k9.segment_attention_fwd_plain(*x64, seg_q, seg_kv, chunk=256, return_lse=True)
+    ref64 = k9.segment_attention_bwd_plain(*x64, o64, lse64, do.double(), seg_q, seg_kv,
+                                           chunk=256)
+    torch.cuda.synchronize()
+    for g, r, r64 in zip(got, ref, ref64):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, r) <= K9_BWD_TOL[torch.float32]
+        assert _rel64(g, r64) <= K9_BWD_FP64_TOL
+
+
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+def test_k9_bwd_fp32_walks_every_tile_when_ranges_span_all(cuda, d):
+    """The range skip's worst case through both backward kernels: every 7th
+    row, query and kv alike, has a far segment id, in turn below and above
+    every other (-1 and 1000), so every own tile's [min, max] range, of
+    query rows in K9-dq and of kv rows in K9-dkv, spans every visited tile
+    and almost every step is masked. fp32 K9-dkv and K9-dq against the
+    plain backward, and every tile is visited both ways."""
+    s = 600
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    seg_q = (torch.arange(s, device=cuda) // 24).to(torch.int32).repeat(2, 1)
+    seg_q[:, ::14], seg_q[:, 7::14] = -1, 1000
+    seg_kv = seg_q.clone()
+    q = torch.randn((2, s, 2, d), generator=gen, device=cuda) * 2
+    k, v, do = (torch.randn((2, s, 2, d), generator=gen, device=cuda) for _ in "kvo")
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    ref = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert _rel(g, r) <= K9_BWD_TOL[torch.float32]
+    own = k9.bwd_own_tile(d)
+    for own_ids, oth_ids in ((seg_q, seg_kv), (seg_kv, seg_q)):
+        visited, tiles = k9.kv_tiles_visited(own_ids, oth_ids, own)
+        assert visited == tiles
+
+
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "cross", "long"])
+def test_k9_bwd_fp32_splits_each_visited_row_once(cuda, layout, d):
+    """fp32 K9-dkv and K9-dq split each visited row of each head once a
+    call (host counter ``k9.bwd_split_rows`` = B H (Sq + Skv) a backward),
+    and their blocks copy in the rows of every step they visit (device
+    counter ``k9.bwd_staged_rows`` = heads x ``bwd_rows_staged`` at the
+    kernels' own tile and step), only while recording; the bytes they
+    allocate for it (host counter ``k9.bwd_scratch_bytes``) are
+    ``bwd_split_bytes``'s. The bf16 backward counts none of them."""
+    q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, layout, torch.float32, d)
+    b, sq, h = q.shape[:3]
+    skv = k.shape[1]
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    tracing.reset_counters()
+    with tracing.recording():
+        k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    got = tracing.counters(cuda)
+    want = h * k9.bwd_rows_staged(seg_q, seg_kv, k9.bwd_own_tile(d), k9.bwd_step(d))
+    scratch = sum(k9.bwd_split_scratch(k9.bwd_split_bytes(n, d, dkv), h)[1]
+                  for n, dkv in ((sq, True), (skv, False)))
+    assert got["k9.bwd_split_rows"] == b * h * (sq + skv)
+    assert got["k9.bwd_staged_rows"] == want > 0
+    assert got["k9.bwd_scratch_bytes"] == scratch
+    tracing.reset_counters()
+    k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    got = tracing.counters(cuda)
+    assert got["k9.bwd_split_rows"] == b * h * (sq + skv)
+    assert got["k9.bwd_staged_rows"] == 0
+    bf = [t.to(torch.bfloat16) for t in (q, k, v, out)]
+    tracing.reset_counters()
+    with tracing.recording():
+        k9.segment_attention_bwd(*bf, lse, do.to(torch.bfloat16), seg_q, seg_kv)
+    got = tracing.counters(cuda)
+    assert got.get("k9.bwd_split_rows", 0) == got["k9.bwd_staged_rows"] == 0
+    assert got.get("k9.bwd_scratch_bytes", 0) == 0
+
+
+def test_k9_bwd_fp32_runs_head_passes_through_bounded_scratch(cuda, monkeypatch):
+    """The kernels' scratch bytes are ``bwd_split_bytes``'s; with room for
+    one head's split rows, fp32 K9-dkv and K9-dq run a pass a (scene, head)
+    through the same scratch and give the bits of one pass a scene."""
+    lib = k9._build.load_library()
+    for d in k9.HEAD_DIMS:
+        for dkv in (True, False):
+            for rows in (1, 4097, 40960):
+                assert lib.wct_segment_attention_bwd_split_bytes(1, rows, d, int(dkv)) == \
+                    k9.bwd_split_bytes(rows, d, dkv)
+    q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, "grouped", torch.float32, 64)
+    q, k, v, do = (torch.cat([t, t.flip(2)], dim=2) for t in (q, k, v, do))  # 4 heads
+    out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+    whole = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    one = k9.bwd_split_bytes(q.shape[1], 64, True)
+    assert k9.bwd_split_scratch(one, 4) == (4, 4 * one)
+    monkeypatch.setattr(k9, "SPLIT_SCRATCH_BYTES", one)
+    assert k9.bwd_split_scratch(one, 4) == (1, one)
+    passes = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    torch.cuda.synchronize()
+    for a, b in zip(whole, passes):
+        assert torch.equal(a, b)
+
+
 def test_k9_bwd_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q, k, v, do, seg_q, seg_kv = _k9_bwd_case(cuda, "global", torch.float32, 64)
     out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)

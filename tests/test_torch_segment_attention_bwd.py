@@ -259,3 +259,63 @@ def test_attention_backward_goes_through_the_function(case):
     for name, g in got.items():
         scale = np.abs(want[name]).max()
         np.testing.assert_allclose(g.numpy(), want[name], rtol=0, atol=1e-5 * max(scale, 1.0))
+
+
+@pytest.mark.parametrize("d,own,step", [(16, 128, 32), (32, 128, 32), (64, 128, 32),
+                                        (128, 64, 16)])
+def test_bwd_own_tile_and_step_follow_the_kernels(d, own, step):
+    """fp32 K9-dkv and K9-dq: two warpgroups of 64 own rows and 32-row
+    visited steps, one warpgroup and 16-row steps at D 128."""
+    assert (k9.bwd_own_tile(d), k9.bwd_step(d)) == (own, step)
+
+
+def test_bwd_split_bytes_counts_each_step_image():
+    """A step's image: hi and lo of two operands row-major, of two (K9-dkv)
+    or one (K9-dq) transposed, then ids (and lse, di); a last partial step
+    whole. The Volt-s trunk (Sq = Skv = 40960, 2 scenes, 6 heads, D 64)
+    splits about 0.94 GiB in K9-dkv and 0.70 GiB in K9-dq."""
+    assert k9.bwd_split_bytes(40960, 64, True) == 1280 * (8 * 64 + 3) * 32 * 4
+    assert k9.bwd_split_bytes(40960, 64, False) == 1280 * (6 * 64 + 1) * 32 * 4
+    assert k9.bwd_split_bytes(4097, 128, True) == 257 * (8 * 128 + 3) * 16 * 4
+    assert k9.bwd_split_bytes(4097, 16, False) == 129 * (6 * 16 + 1) * 32 * 4
+    assert round(12 * k9.bwd_split_bytes(40960, 64, True) / 2 ** 30, 2) == 0.94
+    assert round(12 * k9.bwd_split_bytes(40960, 64, False) / 2 ** 30, 2) == 0.70
+
+
+@pytest.mark.parametrize("rows,h,d,dkv,per_pass", [
+    (40960, 6, 64, True, 3), (40960, 6, 64, False, 3),   # the Volt-s trunk: 3 + 3 heads
+    (262144, 2, 16, True, 1), (262144, 2, 16, False, 2),  # PTv3's level 0
+    (16384, 32, 16, True, 16), (40, 6, 64, True, 6),     # PTv3's level 4; a short walk
+    (1 << 20, 2, 128, True, 1)])                         # one head over the cap
+def test_bwd_split_scratch_keeps_each_pass_under_the_cap(rows, h, d, dkv, per_pass):
+    """A pass is one scene and a group of its heads: no pass over
+    ``SPLIT_SCRATCH_BYTES`` unless one head alone is, at least one head a
+    pass, the heads spread evenly over the fewest passes."""
+    one = k9.bwd_split_bytes(rows, d, dkv)
+    got, nbytes = k9.bwd_split_scratch(one, h)
+    assert got == per_pass and nbytes == per_pass * one
+    assert nbytes <= k9.SPLIT_SCRATCH_BYTES or per_pass == 1
+    passes = -(-h // per_pass)
+    most = k9.SPLIT_SCRATCH_BYTES // one
+    assert passes == (h if most == 0 else -(-h // min(h, most)))
+    assert per_pass * (passes - 1) < h <= per_pass * passes
+
+
+def test_bwd_rows_staged_counts_each_visited_step():
+    """Both kernels' blocks copy in ``step`` rows a step of every tile they
+    visit, pad rows included, and skip a step wholly past the end. One
+    segment over 4097 rows: each own tile visits all 65 tiles, whose last
+    holds one row (one step). Aligned 64-row segments: each own tile of 128
+    its own two tiles. Cross attention, 100 query rows of segment 0 over 300
+    kv rows (64 of segment 0): K9-dkv's first kv tile visits both query
+    tiles (four steps of 32; at 16-row steps 4 + 3, the last past Sq
+    skipped), K9-dq's query tiles the first kv tile (two steps; 2 x 4)."""
+    seg = torch.zeros((1, 4097), dtype=torch.int32)
+    assert k9.bwd_rows_staged(seg, seg, 128, 32) == 2 * 33 * (64 * 64 + 32)
+    assert k9.bwd_rows_staged(seg, seg, 64, 16) == 2 * 65 * (64 * 64 + 16)
+    seg = torch.arange(256, dtype=torch.int32).reshape(1, 256) // 64
+    assert k9.bwd_rows_staged(seg, seg, 128, 32) == 2 * 2 * 2 * 64
+    seg_q = torch.zeros((1, 100), dtype=torch.int32)
+    seg_kv = (torch.arange(300, dtype=torch.int32) >= 64).to(torch.int32).reshape(1, 300)
+    assert k9.bwd_rows_staged(seg_q, seg_kv, 128, 32) == 4 * 32 + 2 * 32
+    assert k9.bwd_rows_staged(seg_q, seg_kv, 64, 16) == 7 * 16 + 2 * 4 * 16

@@ -16,8 +16,9 @@ Inputs come from a seeded generator on the card, dO is zero on pad rows.
 
 Prints the card's name and power limit, then one JSON line per tree: per
 layout, the mean CUDA-event time of each kernel (K9 with lse, as training
-runs it), with ``--dtype fp32`` K9's scratch bytes and the reuse of each
-kv row it split (rows its blocks copied in over rows split), the relative Frobenius error of dq, dk and dv against the plain
+runs it), with ``--dtype fp32`` K9's and the backward's scratch bytes and
+the reuse of each row they split (rows their blocks copied in over rows
+split), the relative Frobenius error of dq, dk and dv against the plain
 backward (with ``--dtype fp32`` also of out, lse, dq, dk and dv against a
 float64 plain forward and backward of float64 inputs, beside the fp32
 plain versions'), and SHA-1s of out and lse and of the gradients' bytes
@@ -74,6 +75,30 @@ def split_reuse(torch, k9, q, k, v, seg):
     split, staged = got["k9.fwd_split_rows"], got["k9.fwd_staged_rows"]
     return dict(scratch_bytes=k9.split_scratch(k9._build.load_library(), b, skv, h, d)[1],
                 split_rows=split, staged_rows=staged, split_reuse=staged / split)
+
+
+def bwd_split_reuse(torch, k9, args):
+    """The fp32 backward's scratch bytes as K9-dkv and K9-dq allocated
+    them (alive in turn), the visited rows it split and its blocks copied
+    in (``tracing`` counters ``k9.bwd_scratch_bytes``,
+    ``k9.bwd_split_rows``, ``k9.bwd_staged_rows``) and their ratio; None
+    for a tree without them."""
+    from warpconvnet_tpu_torch import tracing
+
+    if not hasattr(k9, "bwd_split_scratch"):
+        return dict(bwd_scratch_bytes=None, bwd_split_rows=None, bwd_staged_rows=None,
+                    bwd_split_reuse=None)
+    scratch = []
+    tracing.reset_counters()
+    with tracing.recording():
+        for fn in (k9.segment_attention_bwd_dkv, k9.segment_attention_bwd_dq):
+            bytes0 = tracing.counters().get("k9.bwd_scratch_bytes", 0)
+            fn(*args)
+            scratch.append(tracing.counters()["k9.bwd_scratch_bytes"] - bytes0)
+    got = tracing.counters(args[0].device)
+    split, staged = got["k9.bwd_split_rows"], got["k9.bwd_staged_rows"]
+    return dict(bwd_scratch_bytes=scratch, bwd_split_rows=split, bwd_staged_rows=staged,
+                bwd_split_reuse=staged / split)
 
 
 def run_tree(tree, dtype_name, forward_only):
@@ -147,6 +172,8 @@ def run_tree(tree, dtype_name, forward_only):
         dq_ms = cuda_ms(torch, lambda: k9.segment_attention_bwd_dq(*args), n)
         case.update(dkv_ms=dkv_ms, dq_ms=dq_ms, sum_ms=dkv_ms + dq_ms, rel_err_dq_dk_dv=errs,
                     **fp64, sha1=digest(torch, dq, dk, dv))
+        if dtype == torch.float32:
+            case.update(bwd_split_reuse(torch, k9, args))
         cases.append(case)
     return dict(tree=tree, dtype=dtype_name, cases=cases)
 

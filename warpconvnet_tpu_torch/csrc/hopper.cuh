@@ -1,7 +1,8 @@
 // Hopper device helpers of the segment-attention kernels (K9 in
 // segment_attention_fwd_{tf32,bf16}.cu, K9-dkv and K9-dq in
 // segment_attention_bwd_{tf32,bf16}.cu): cp.async and bulk copies, the
-// visited-tile walk, mbarriers, bf16 packing and TF32 splitting, and Hopper's wgmma
+// visited-tile walk, mbarriers and named barriers, 16-byte loads and stores,
+// register reallocation, bf16 packing and TF32 splitting, and Hopper's wgmma
 // (bf16 and tf32) with the swizzled shared-memory tiles it reads.
 #pragma once
 
@@ -292,6 +293,36 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a
 
 #undef WG_OUT8
 
+// 16 bytes of v to global (p) or shared (addr) memory.
+__device__ __forceinline__ void st_global4(unsigned char* p, const uint32_t (&v)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]) : "memory");
+}
+
+// Four fp32 values from 16-byte aligned p, or zeros when !ok (p is then not read).
+__device__ __forceinline__ float4 load4(const float* p, bool ok) {
+  return ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// Sets this warpgroup's registers a thread to N (INC: raise, else lower);
+// every thread of the warpgroup executes it.
+template <int N, bool INC>
+__device__ __forceinline__ void set_max_regs() {
+  if constexpr (INC)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
+  else
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
+}
+
+// Waits at named barrier `id` (1-15) for the 128 threads of one warpgroup.
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(id) : "memory");
+}
+
 // 2^x, flushing results below 2^-126 to 0 (one MUFU instruction; exp2f
 // adds a subnormal path).
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -319,6 +350,14 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   hi = to_tf32(x);
   const bool finite = FINITE || (hi & 0x7F800000u) != 0x7F800000u;
   lo = finite ? to_tf32(x - __uint_as_float(hi)) : 0u;
+}
+
+// Split the four values of v into hi and lo words (split_tf32).
+__device__ __forceinline__ void split4(const float4& v, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32<false>(v.x, hi[0], lo[0]);
+  split_tf32<false>(v.y, hi[1], lo[1]);
+  split_tf32<false>(v.z, hi[2], lo[2]);
+  split_tf32<false>(v.w, hi[3], lo[3]);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

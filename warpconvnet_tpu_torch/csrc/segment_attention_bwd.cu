@@ -36,8 +36,11 @@ using wct::seg_bwd::LOG2E;
 using wct::seg_bwd::TILE;
 
 template <bool DKV>
-int launch_d(const Args& a, int b, int d, int dtype, cudaStream_t stream) {
-  if (dtype == 0) return wct::seg_bwd::launch_tf32(a, b, d, DKV, stream);
+int launch_d(const Args& a, int b, int d, int dtype, void* split, int per_pass, int64_t* staged,
+             cudaStream_t stream) {
+  if (dtype == 0)
+    return wct::seg_bwd::launch_tf32(a, b, d, DKV, split, per_pass,
+                                     reinterpret_cast<unsigned long long*>(staged), stream);
   if (dtype == 1) return wct::seg_bwd::launch_bf16(a, b, d, DKV, stream);
   return int(cudaErrorInvalidValue);
 }
@@ -57,17 +60,23 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients share
 // it). strides: the batch and row strides, in elements, of q, k, v and
 // dout, in that order; the wrapper checks 16-byte alignment of every row.
-// Every row of dk and dv (dq) is written.
+// Every row of dk and dv (dq) is written. fp32 only: `split` is scratch of
+// wct_segment_attention_bwd_split_bytes(per_pass, rows, d, dkv) bytes
+// (rows: Sq for K9-dkv, Skv for K9-dq), 16-byte aligned, through which
+// one scene and per_pass of its heads run at a time, and `staged` (or
+// null) an int64 counter of the visited rows the blocks copy in; bf16
+// ignores the three.
 extern "C" int wct_segment_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse, const float* di,
                                              const int32_t* seg_q, const int32_t* seg_kv,
                                              void* dk, void* dv, int b, int sq, int skv, int h,
                                              int d, const int64_t* strides, float scale,
-                                             int dtype, cudaStream_t stream) {
+                                             int dtype, void* split, int per_pass,
+                                             int64_t* staged, cudaStream_t stream) {
   if (b == 0 || skv == 0 || h == 0) return 0;
   const Args a = make_args(q, k, v, dout, lse, di, seg_q, seg_kv, nullptr, dk, dv, sq, skv, h,
                            strides, scale, sq);
-  return launch_d<true>(a, b, d, dtype, stream);
+  return launch_d<true>(a, b, d, dtype, split, per_pass, staged, stream);
 }
 
 extern "C" int wct_segment_attention_bwd_dq(const void* q, const void* k, const void* v,
@@ -75,9 +84,17 @@ extern "C" int wct_segment_attention_bwd_dq(const void* q, const void* k, const 
                                             const int32_t* seg_q, const int32_t* seg_kv,
                                             void* dq, int b, int sq, int skv, int h, int d,
                                             const int64_t* strides, float scale, int dtype,
+                                            void* split, int per_pass, int64_t* staged,
                                             cudaStream_t stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
   const Args a = make_args(q, k, v, dout, lse, di, seg_q, seg_kv, dq, nullptr, nullptr, sq, skv,
                            h, strides, scale, skv);
-  return launch_d<false>(a, b, d, dtype, stream);
+  return launch_d<false>(a, b, d, dtype, split, per_pass, staged, stream);
+}
+
+// Bytes of the fp32 backward's scratch for nh heads of one scene whose
+// visited rows number `rows` (K9-dkv when dkv, else K9-dq); -1 for a head
+// dim the kernels do not take.
+extern "C" int64_t wct_segment_attention_bwd_split_bytes(int nh, int rows, int d, int dkv) {
+  return wct::seg_bwd::split_bytes_tf32(nh, rows, d, dkv != 0);
 }

@@ -77,8 +77,14 @@ __device__ void mark_tiles(const int32_t* sown, int n_own, int own0, const int32
 
 // K9-dkv (dkv) or K9-dq for head dim d on fp32 inputs (the 3xTF32 kernels
 // of segment_attention_bwd_tf32.cu) or bf16 inputs (the kernels of
-// segment_attention_bwd_bf16.cu). Return a CUDA error code.
-int launch_tf32(const Args& a, int b, int d, bool dkv, cudaStream_t stream);
+// segment_attention_bwd_bf16.cu). Return a CUDA error code. fp32 runs a
+// pass a scene and per_pass of its heads through `split`, the scratch of
+// split_bytes_tf32(per_pass, visited rows, d, dkv) bytes that holds their
+// visited rows (K9-dkv: Sq, K9-dq: Skv) split into TF32 hi and lo;
+// `staged` (or null) counts the visited rows the blocks copy in.
+int launch_tf32(const Args& a, int b, int d, bool dkv, void* split, int per_pass,
+                unsigned long long* staged, cudaStream_t stream);
+int64_t split_bytes_tf32(int nh, int rows, int d, bool dkv);
 int launch_bf16(const Args& a, int b, int d, bool dkv, cudaStream_t stream);
 
 }  // namespace wct::seg_bwd

@@ -79,37 +79,6 @@ constexpr int WG = 128;               // threads of a warpgroup
 constexpr int SPLIT_NT = 256;         // threads of a pre-pass block
 constexpr size_t kMaxSmem = 232448;   // bytes a block may use on sm_90
 
-__device__ __forceinline__ void st_global4(unsigned char* p, const uint32_t (&v)[4]) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void st_shared4(uint32_t addr, const uint32_t (&v)[4]) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
-               :: "r"(addr), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3]) : "memory");
-}
-
-__device__ __forceinline__ float4 load4(const float* p, bool ok) {
-  return ok ? *reinterpret_cast<const float4*>(p) : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// Split the four values of v into hi and lo words.
-__device__ __forceinline__ void split4(const float4& v, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  split_tf32<false>(v.x, hi[0], lo[0]);
-  split_tf32<false>(v.y, hi[1], lo[1]);
-  split_tf32<false>(v.z, hi[2], lo[2]);
-  split_tf32<false>(v.w, hi[3], lo[3]);
-}
-
-// Sets this warpgroup's registers a thread to N (INC: raise, else lower);
-// every thread of the warpgroup executes it.
-template <int N, bool INC>
-__device__ __forceinline__ void set_max_regs() {
-  if constexpr (INC)
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(N));
-  else
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(N));
-}
-
 template <int D>
 struct Cfg {
   static constexpr int NWG = D > 64 ? 1 : 2;   // consumer warpgroups, 64 own rows each

@@ -60,13 +60,15 @@ _SIGNATURES = {
     "wct_segment_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P, _I, _P, _P],
     # int wct_segment_attention_bwd_dkv(q, k, v, dout, lse, di, seg_q, seg_kv, dk, dv,
-    #                                   b, sq, skv, h, d, strides[8], scale, dtype, stream)
+    #                                   b, sq, skv, h, d, strides[8], scale, dtype,
+    #                                   split, per_pass, staged, stream)
     "wct_segment_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P],
+                                      _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P, _I, _P, _P],
     # int wct_segment_attention_bwd_dq(q, k, v, dout, lse, di, seg_q, seg_kv, dq,
-    #                                  b, sq, skv, h, d, strides[8], scale, dtype, stream)
+    #                                  b, sq, skv, h, d, strides[8], scale, dtype,
+    #                                  split, per_pass, staged, stream)
     "wct_segment_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P],
+                                     _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P, _I, _P, _P],
 }
 
 
@@ -155,6 +157,9 @@ def load_library() -> ctypes.CDLL:
             # int64 wct_segment_attention_fwd_split_bytes(nb, skv, h, d)
             lib.wct_segment_attention_fwd_split_bytes.argtypes = [_I, _I, _I, _I]
             lib.wct_segment_attention_fwd_split_bytes.restype = _L
+            # int64 wct_segment_attention_bwd_split_bytes(nh, rows, d, dkv)
+            lib.wct_segment_attention_bwd_split_bytes.argtypes = [_I, _I, _I, _I]
+            lib.wct_segment_attention_bwd_split_bytes.restype = _L
             _lib = lib
         return _lib
 

@@ -23,7 +23,13 @@ scratch that its blocks then copy from (at most ``SPLIT_SCRATCH_BYTES`` alive
 at once: a scene or more a pass). ``tracing`` counts the rows split (host
 counter ``k9.fwd_split_rows``, B H Skv a call) and, while recording, the kv
 rows the blocks copy in (device counter ``k9.fwd_staged_rows``): their ratio
-is how often each split is reused.
+is how often each split is reused. The fp32 backward does the same with the
+rows each kernel visits, Q and dO in K9-dkv, K and V in K9-dq (a scene and
+a group of its heads a pass, ``SPLIT_SCRATCH_BYTES`` at most; K9-dkv's
+scratch is freed before K9-dq takes its own): host counters
+``k9.bwd_split_rows`` (B H (Sq + Skv) a backward) and
+``k9.bwd_scratch_bytes`` (the bytes each call allocated for them, summed
+over calls) and device counter ``k9.bwd_staged_rows``.
 """
 
 from __future__ import annotations
@@ -41,7 +47,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)  # csrc/segment_attention.cu instantiates these
 QUERY_TILE = 128  # query rows per block of the fp32 forward at D <= 64
 KV_TILE = 64  # kv rows per tile
-SPLIT_SCRATCH_BYTES = 1 << 28  # the fp32 forward's split kv rows alive at once (one scene at least)
+SPLIT_SCRATCH_BYTES = 1 << 28  # fp32 split rows alive at once (a pass: a scene, or head, at least)
 PLAIN_CHUNK = 1024
 
 
@@ -277,7 +283,8 @@ def segment_attention_bwd_dq_plain(q, k, v, do, lse, di, seg_q, seg_kv, scale=No
 
 def _bwd_launch(name, q, k, v, do, lse, di, seg_q, seg_kv, scale, shapes):
     """Checks the inputs of K9-dkv or K9-dq, allocates its outputs
-    (contiguous, ``shapes``, in q's dtype) and launches it into them."""
+    (contiguous, ``shapes``, in q's dtype) and, for fp32, the scratch of its
+    split visited rows, and launches it into them."""
     b, sq, skv, h, d = _check_qkv(name, q, k, v, seg_q, seg_kv)
     if do.dtype != q.dtype or tuple(do.shape) != (b, sq, h, d) or do.device != q.device:
         raise ValueError(f"{name}: do must be {q.dtype} {(b, sq, h, d)} like q, got "
@@ -291,14 +298,36 @@ def _bwd_launch(name, q, k, v, do, lse, di, seg_q, seg_kv, scale, shapes):
                for st in _row_strides(f"{name}: {t_name}", t, h, d)]
     outs = [torch.empty(shape, dtype=q.dtype, device=q.device) for shape in shapes]
     lib = _build.load_library()
+    dkv = name.endswith("dkv")
+    rows = sq if dkv else skv  # the rows the kernel visits
+    split, per_pass, staged = None, h, None
+    if q.dtype == torch.float32:
+        one = lib.wct_segment_attention_bwd_split_bytes(1, rows, d, int(dkv))
+        per_pass, nbytes = bwd_split_scratch(one, h)
+        split = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+        staged = tracing.counter_ptr(q.device, "k9.bwd_staged_rows")
     rc = getattr(lib, f"wct_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
         seg_q.data_ptr(), seg_kv.data_ptr(), *(t.data_ptr() for t in outs), b, sq, skv, h, d,
         (ctypes.c_int64 * 8)(*strides), float(scale if scale is not None else d ** -0.5),
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        _DTYPE_CODES[q.dtype], None if split is None else split.data_ptr(), per_pass, staged,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, name)
+    if split is not None:
+        tracing.add("k9.bwd_split_rows", b * h * rows)
+        tracing.add("k9.bwd_scratch_bytes", split.numel())
     return outs
+
+
+def bwd_split_scratch(one: int, h: int) -> Tuple[int, int]:
+    """(heads a pass, scratch bytes) of fp32 K9-dkv or K9-dq, whose split
+    visited rows take ``one`` bytes a (scene, head): a pass is one scene and
+    as many of its heads as ``SPLIT_SCRATCH_BYTES`` holds, one at least, the
+    heads spread evenly over the fewest passes."""
+    most = max(1, min(h, SPLIT_SCRATCH_BYTES // max(one, 1)))
+    per_pass = -(-h // -(-h // most))
+    return per_pass, per_pass * one
 
 
 def segment_attention_bwd_dkv(q, k, v, do, lse, di, seg_q, seg_kv, scale=None):
@@ -389,14 +418,54 @@ def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor,
     return int(visited.sum()), visited.numel()
 
 
+def _rows_staged(seg_own: torch.Tensor, seg_oth: torch.Tensor, own: int, step: int) -> int:
+    """Rows of ``seg_oth``'s side that blocks of ``own`` rows of
+    ``seg_own``'s side copy in: ``step`` rows a step of each tile they
+    visit, pad rows included; a step wholly past the end is skipped. Per
+    head."""
+    n = seg_oth.shape[1]
+    starts = torch.arange(0, KV_TILE, step)  # step offsets within a tile
+    tile0 = torch.arange(-(-n // KV_TILE)) * KV_TILE
+    steps = ((tile0[:, None] + starts[None, :]) < n).sum(dim=1)  # [tiles]
+    visited = _visited_tiles(seg_own, seg_oth, own).cpu()
+    return int((visited * steps).sum()) * step
+
+
 def kv_rows_staged(seg_q: torch.Tensor, seg_kv: torch.Tensor, qt: int, step: int) -> int:
     """kv rows the forward's blocks copy in (``step`` rows a step of each
     visited tile, pad rows included; a step wholly past Skv is skipped)
     over every (scene, query tile of ``qt`` rows). Per head; the fp32
     kernel's ``k9.fwd_staged_rows`` is this times the heads."""
-    skv = seg_kv.shape[1]
-    starts = torch.arange(0, KV_TILE, step)  # step offsets within a tile
-    tile0 = torch.arange(-(-skv // KV_TILE)) * KV_TILE
-    steps = ((tile0[:, None] + starts[None, :]) < skv).sum(dim=1)  # [kv tiles]
-    visited = _visited_tiles(seg_q, seg_kv, qt).cpu()
-    return int((visited * steps).sum()) * step
+    return _rows_staged(seg_q, seg_kv, qt, step)
+
+
+def bwd_own_tile(d: int) -> int:
+    """Own rows a block of fp32 K9-dkv and K9-dq: two warpgroups of 64 (one
+    at D 128)."""
+    return 128 if d <= 64 else 64
+
+
+def bwd_step(d: int) -> int:
+    """Visited rows fp32 K9-dkv and K9-dq take a step: 32 (16 at D 128,
+    where the own tiles take more shared memory)."""
+    return 32 if d <= 64 else 16
+
+
+def bwd_split_bytes(rows: int, d: int, dkv: bool) -> int:
+    """Scratch bytes a (scene, head) of fp32 K9-dkv (``dkv``) or K9-dq over
+    ``rows`` visited rows: per step of :func:`bwd_step` rows, hi and lo
+    tiles of the two visited operands row-major and of two (K9-dkv) or one
+    (K9-dq) transposed, then the step's ids and, K9-dkv, lse and di. For
+    the tests; the wrapper sizes its scratch by the kernels' own count."""
+    step = bwd_step(d)
+    per_step = ((8 if dkv else 6) * d + (3 if dkv else 1)) * step * 4
+    return -(-rows // step) * per_step
+
+
+def bwd_rows_staged(seg_q: torch.Tensor, seg_kv: torch.Tensor, own: int, step: int) -> int:
+    """Visited rows fp32 K9-dkv's blocks (own kv tiles of ``own`` rows,
+    visiting query tiles) and K9-dq's (own query tiles, visiting kv tiles)
+    copy in together, ``step`` rows a step as :func:`kv_rows_staged` counts
+    them. Per head; the kernels' ``k9.bwd_staged_rows`` is this times the
+    heads."""
+    return _rows_staged(seg_kv, seg_q, own, step) + _rows_staged(seg_q, seg_kv, own, step)

@@ -56,6 +56,7 @@ DEVICE_KEYS = (
     "k8.dw_floats",  # floats K8's dw blocks added into dw
     "k7.dw_floats",  # floats K7's blocks added into dw
     "k9.fwd_staged_rows",  # fp32 K9: kv rows its blocks copied in (pre-split, by bulk copy)
+    "k9.bwd_staged_rows",  # fp32 K9-dkv and K9-dq: visited rows their blocks copied in (as K9)
 )
 _SLOT = {k: i for i, k in enumerate(DEVICE_KEYS)}
 _device_counts: Dict[torch.device, torch.Tensor] = {}
