@@ -1,5 +1,6 @@
-"""Port parity for the conv backward: ``ConvGemm`` (the counterpart of the
-JAX ``conv_gemm`` custom_vjp) under ``torch.autograd.gradcheck``, and the
+"""Port parity for the conv backward: ``TableConv`` with the dense kernels
+(the counterpart of the JAX ``conv_gemm`` custom_vjp) under
+``torch.autograd.gradcheck``, and the
 gradients of ``spatially_sparse_conv`` against ``jax.grad`` of the JAX
 ``spatially_sparse_conv`` (explicit backends on the CPU), fp32 at rtol =
 atol = 1e-5. A spy shows which backward each map takes: the fused K4 for a
@@ -50,7 +51,7 @@ def test_conv_gemm_gradcheck_float64(route):
     x = vox.features.clone().requires_grad_(True)
     w = torch.from_numpy(rng.standard_normal((k, 3, 4)) / math.sqrt(k * 3)).requires_grad_(True)
     assert torch.autograd.gradcheck(
-        lambda x, w: tconv.conv_gemm(x, w, bpt, torch.float64), (x, w), eps=1e-6, atol=1e-8
+        lambda x, w: tconv.table_conv(x, w, bpt, tconv.DENSE, torch.float64), (x, w), eps=1e-6, atol=1e-8
     )
 
 

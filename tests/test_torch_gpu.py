@@ -379,7 +379,7 @@ def test_k4_and_k3_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
 
 @pytest.mark.parametrize("kind", ["submanifold", "strided"])
 def test_conv_backward_on_cuda_matches_cpu_plain_route(cuda, kind):
-    """fp32 grads of features and weight through ConvGemm: kernels on the
+    """fp32 grads of features and weight through TableConv: kernels on the
     card (K4, or K2-dgrad and K3) against the plain versions on the CPU."""
     vox = _voxels(5, "cpu", c=16).lex_sort()
     ks, st = (3, 1) if kind == "submanifold" else (2, 2)
@@ -436,14 +436,15 @@ def test_small_unet_train_step_on_cuda_gives_every_parameter_a_grad(cuda):
 def _depth_maps(cuda, c, dtype):
     """Features and the maps the depthwise path uses: 3^3 and 7^3 (K=343)
     self-maps, each with the offsets 1 and K-2 (a pair, so the map stays
-    symmetric) emptied to all -1 rows, and the 2^3 parity map."""
+    symmetric) emptied to all -1 rows (their ``.rev``, the flip of the
+    emptied table), and the 2^3 parity map."""
     vox = _voxels(0, cuda, c=c).lex_sort()
     maps = {}
     for ks in (3, 7):
         _, _, sub, _ = generate_output_coords_and_kernel_map(vox, ks)
         table = sub.table.clone()
         table[:, [1, ks ** 3 - 2]] = -1
-        maps[f"{ks}^3"] = sub._replace(table=table, rev=table.flip(1).contiguous())
+        maps[f"{ks}^3"] = sub._replace(table=table)
     _, _, maps["2^3"], _ = generate_output_coords_and_kernel_map(vox, 2, stride=2)
     return vox.features.to(dtype).contiguous(), maps
 

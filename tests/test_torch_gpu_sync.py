@@ -1,8 +1,13 @@
-"""Every host call of the port that blocks on the card is named: a small
-MinkUNet18 train step, a MinkUNet18 request and a Volt-s train step run
-under ``torch.cuda.set_sync_debug_mode("warn")``, and each synchronisation
-the warnings report must be raised inside an open ``wcn.sync.*`` span
-(``tracing.open_spans()``, which holds the spans while recording).
+"""Every host call of the port that blocks on the card is named, and a
+steady step or request makes none: a small MinkUNet18 train step, a
+MinkUNet18 request and a Volt-s train step run under
+``torch.cuda.set_sync_debug_mode("warn")``, a step after one warm-up step,
+a request twice. Each synchronisation the warnings report must be raised
+inside an open ``wcn.sync.*`` span (``tracing.open_spans()``, which holds
+the spans while recording), and the warm calls report none: the map
+builders copy no host data to the card, and K1's descriptor is copied once
+per offsets and device. A known synchronisation shows that the check sees
+one, inside a span and outside.
 
 The inputs are made on the card before the checked region, as a data
 loader would hand them over. Needs an NVIDIA GPU with nvcc (sm_90) and
@@ -85,12 +90,25 @@ def _train(model, vox, labels):
     return _unnamed_syncs(lambda: step(vox, labels))
 
 
+def test_the_check_sees_a_sync(cuda):
+    one = torch.ones(1, device=cuda)
+    seen, unnamed = _unnamed_syncs(lambda: one.item())
+    assert len(seen) == len(unnamed) == 1, seen
+
+    def named():
+        with tracing.span("wcn.sync.test"):
+            one.item()
+
+    seen, unnamed = _unnamed_syncs(named)
+    assert len(seen) == 1 and not unnamed, seen
+
+
 def test_minkunet18_step_syncs_are_named(cuda):
     vox, labels = _batch(cuda)
     model = MinkUNet18(3, CLASSES, device=cuda, generator=torch.Generator().manual_seed(0))
     seen, unnamed = _train(model, vox, labels)
     assert not unnamed, unnamed
-    assert seen  # the strided maps copy their constants to the card
+    assert not seen, seen  # the strided maps copy no constants to the card
 
 
 def test_minkunet18_request_syncs_are_named(cuda):
@@ -101,9 +119,10 @@ def test_minkunet18_request_syncs_are_named(cuda):
         with torch.inference_mode():
             model(vox).features
 
-    seen, unnamed = _unnamed_syncs(request)
-    assert not unnamed, unnamed
-    assert seen
+    for call in ("first", "warm"):
+        seen, unnamed = _unnamed_syncs(request)
+        assert not unnamed, (call, unnamed)
+    assert not seen, seen
 
 
 def test_volt_s_step_syncs_are_named(cuda):
@@ -112,4 +131,4 @@ def test_volt_s_step_syncs_are_named(cuda):
                        generator=torch.Generator().manual_seed(0))
     seen, unnamed = _train(model, vox, labels)
     assert not unnamed, unnamed
-    assert seen
+    assert not seen, seen

@@ -200,27 +200,41 @@ def test_strided_probe_at_range_edge_matches_jax():
     assert (got >= 0).sum() > 0
 
 
+@pytest.mark.parametrize("ks", [2, (2, 4, 2)])
 @pytest.mark.parametrize("cap", [None, 40])
-def test_parity_maps_match_jax(cap):
-    """2^3/s2 maps: out coords, num_valid, table and rev; negative coords,
-    and a capacity that drops output rows."""
+def test_parity_maps_match_jax(cap, ks):
+    """2^3/s2 and (2, 4, 2)/s(2, 4, 2) maps: out coords, num_valid, table
+    and rev; negative coords (floor residues and quotients per axis), and a
+    capacity that drops output rows."""
     coords, feats, nv = _pad_batch(_random_scenes(11, grid=20, lo=-9), 384)
     tv, jv = _both(coords, feats, nv)
     oc, onv, bpt, ts = tconv.generate_output_coords_and_kernel_map(
-        tv, 2, stride=2, out_capacity=cap
+        tv, ks, stride=ks, out_capacity=cap
     )
-    joc, jonv, jtable, jrev = _jax_map(jv, 2, stride=2, out_capacity=cap)
-    assert ts == (2, 2, 2)
+    joc, jonv, jtable, jrev = _jax_map(jv, ks, stride=ks, out_capacity=cap)
+    assert ts == tuple(np.broadcast_to(ks, 3))
     _assert_eq(oc, joc)
     _assert_eq(onv, jonv)
     _assert_eq(bpt.table, jtable)
     _assert_eq(bpt.rev, jrev)
-    np.testing.assert_array_equal(bpt.offsets, jkm.kernel_offsets(2))
+    np.testing.assert_array_equal(bpt.offsets, jkm.kernel_offsets(ks))
     # Reversed: the transposed conv's map swaps the tables, negates offsets.
     r = bpt.reversed()
     _assert_eq(r.table, jrev)
     _assert_eq(r.rev, jtable)
-    np.testing.assert_array_equal(r.offsets, -jkm.kernel_offsets(2))
+    np.testing.assert_array_equal(r.offsets, -jkm.kernel_offsets(ks))
+
+
+def test_parity_maps_take_power_of_two_kernels_only():
+    """Residues and quotients are bit operations: an even kernel that is not
+    a power of two raises instead of giving a wrong map."""
+    coords = torch.zeros((1, 4, 3), dtype=torch.int32)
+    nv = torch.tensor([4])
+    with pytest.raises(ValueError, match="power-of-two"):
+        tkm.parity_strided_unique(coords, nv, (6, 6, 6), 4)
+    with pytest.raises(ValueError, match="power-of-two"):
+        tkm.parity_pair_tables_from_unique(coords, torch.ones((1, 4), dtype=torch.bool),
+                                           torch.zeros((1, 4), dtype=torch.int32), (2, 6, 2), 4)
 
 
 def test_submanifold_map_reverse_and_reversed_match_jax():
@@ -238,9 +252,26 @@ def test_submanifold_map_reverse_and_reversed_match_jax():
     _assert_eq(tkm.reverse_tables(bpt.table, tv.max_num_points), jrev)
 
 
+def test_conv_self_map_stores_no_reverse_and_its_rev_matches_jax():
+    """The 3^3 self-map a conv builds holds no reverse table; ``.rev`` and
+    ``reversed()`` build the K-flip where they are read."""
+    coords, feats, nv = _pad_batch(_random_scenes(6), 384, c=4)
+    tv, _ = _both(coords, feats, nv)
+    jv = JVoxels.create(coords, feats, nv)
+    _, bpt = tconv.spatially_sparse_conv(tv, torch.zeros((27, 4, 2)), 3)
+    _, _, jtable, jrev = _jax_map(jv, 3)
+    assert bpt.symmetric_self_map and bpt.stored_rev is None
+    _assert_eq(bpt.table, jtable)
+    _assert_eq(bpt.rev, jrev)
+    r = bpt.reversed()
+    _assert_eq(r.table, jrev)
+    _assert_eq(r.rev, jtable)
+    assert r.order is bpt.rev_order and r.rev_order is bpt.order
+
+
 def test_map_onto_other_coords_with_reverse_matches_jax():
     """Stride-1 map onto a different coordinate set: no K-flip; the reverse
-    comes from the scatter (``with_reverse``), N_in != N_out."""
+    comes from the scatter (``reverse_tables``), N_in != N_out."""
     scenes = _random_scenes(9)
     ci, fi, ni = _pad_batch(scenes, 384)
     co, fo, no = _pad_batch([s[::3] + 1 for s in scenes], 160)

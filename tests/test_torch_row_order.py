@@ -153,11 +153,11 @@ def _jax_table_conv(x, w, table):
 
 @pytest.mark.parametrize("name", ["3^3", "2^3"])
 def test_conv_through_an_ordered_map_matches_jax(name):
-    """``conv_gemm`` on a map with its orders: the forward against JAX's
+    """``table_conv`` with the dense kernels on a map with its orders: the forward against JAX's
     Pallas forward, the gradients of sum(out^2) in x and w against
     ``jax.grad`` of the plain jnp conv. On the CPU every wrapper runs its
     plain version, which takes no order, so this checks the routing of the
-    orders through ``ConvGemm`` (K4 for the 3^3 self-map, K2-dgrad + K3 for
+    orders through ``TableConv`` (K4 for the 3^3 self-map, K2-dgrad + K3 for
     the 2^3 map), not the kernels' use of them: the card tests in
     ``tests/test_torch_gpu.py`` do that."""
     vox, maps = _port_maps()
@@ -168,7 +168,7 @@ def test_conv_through_an_ordered_map_matches_jax(name):
     w = (rng.standard_normal((k, C_IN, 20)) / np.sqrt(k * C_IN)).astype(np.float32)
     x = vox.features.clone().requires_grad_(True)
     tw = torch.from_numpy(w).requires_grad_(True)
-    got = tconv.conv_gemm(x, tw, bpt)
+    got = tconv.table_conv(x, tw, bpt, tconv.DENSE)
     got.square().sum().backward()
     jx, jw, jt = (jnp.asarray(a) for a in (vox.features.numpy(), w, bpt.table.numpy()))
     ref = jax.jit(lambda *a: jax_igemm_fwd(*a, tile_m=128, window_factor=2, interpret=True))(

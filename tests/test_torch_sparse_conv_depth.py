@@ -2,7 +2,7 @@
 ``spatially_sparse_depthwise_conv`` forward and ``torch.autograd``
 gradients against ``jax.grad`` of the JAX function (its explicit scans on
 the CPU), relative Frobenius error <= 1e-5 in fp32 and <= 2e-2 with bf16
-features; ``DepthwiseFma`` under ``gradcheck``; a spy on the route each map
+features; ``TableConv`` with the depthwise kernels under ``gradcheck``; a spy on the route each map
 takes (K8 for a symmetric self-map, K6-dgrad plus K7 otherwise); and
 ``spatially_sparse_conv(groups=2)`` and the grouped ``SparseConv3d`` against
 the JAX grouped conv, fp32 at rtol = atol = 1e-5."""
@@ -111,7 +111,7 @@ def test_depthwise_fma_gradcheck_float64(route):
     x = vox.features.clone().requires_grad_(True)
     w = torch.from_numpy(np.random.default_rng(24).standard_normal((ks ** 3, 3))).requires_grad_(True)
     assert torch.autograd.gradcheck(
-        lambda x, w: tdepth.depthwise_conv(x, w, bpt, torch.float64), (x, w), eps=1e-6, atol=1e-8
+        lambda x, w: tconv.table_conv(x, w, bpt, tdepth.DEPTHWISE, torch.float64), (x, w), eps=1e-6, atol=1e-8
     )
 
 

@@ -119,8 +119,9 @@ def test_train_step_spans_nest_as_documented():
                  "parity_strided_unique", "parity_pair_tables_from_unique"):
         assert "wcn.model.minkunet" in spans[f"wcn.map.{name}"], name
     assert spans["wcn.map.build_pair_tables_batched"][0] == "wcn.map.build_batched_pair_table"
-    assert spans["wcn.sync.parity_strided_unique"][0] == "wcn.map.parity_strided_unique"
-    assert spans["wcn.sync.parity_k_index"][0] == "wcn.map.parity_pair_tables_from_unique"
+    # The parity builders copy no host data to the card, and on CPU tensors
+    # K1 builds no descriptor: the step opens no sync span at all.
+    assert [n for n in spans if n.startswith("wcn.sync.")] == []
     fwd = _one(spans, "wcn.conv.fwd[")
     assert all(spans[n][0] == "wcn.model.minkunet" for n in fwd)
     assert {n.split("[")[1].split()[0] for n in fwd} == {"sub", "down", "up"}

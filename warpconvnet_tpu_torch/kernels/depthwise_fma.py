@@ -42,7 +42,7 @@ import torch
 
 from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import _build
-from warpconvnet_tpu_torch.kernels.implicit_gemm import _check_self_map, _gather_rows
+from warpconvnet_tpu_torch.kernels.implicit_gemm import check_self_map, gather_rows
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHANNELS = 1024  # csrc/depthwise_fma.cu: at most 128 lanes of 8 channels
@@ -58,7 +58,7 @@ def depthwise_fma_fwd_plain(
     b, c = x.shape[0], x.shape[-1]
     acc = torch.zeros((b, table.shape[2], c), dtype=accum_dtype, device=x.device)
     for k in range(table.shape[1]):
-        acc += _gather_rows(x, table[:, k]).to(accum_dtype) * weight[k].to(accum_dtype)
+        acc += gather_rows(x, table[:, k]).to(accum_dtype) * weight[k].to(accum_dtype)
     return acc.to(x.dtype)
 
 
@@ -83,7 +83,7 @@ def depthwise_fma_wgrad_plain(
     rows of all scenes (the JAX ``_depth_wgrad_impl``)."""
     g = g.to(accum_dtype)
     return torch.stack([
-        (_gather_rows(x, table[:, k]).to(accum_dtype) * g).sum(dim=(0, 1))
+        (gather_rows(x, table[:, k]).to(accum_dtype) * g).sum(dim=(0, 1))
         for k in range(table.shape[1])
     ])
 
@@ -98,7 +98,7 @@ def depthwise_fma_bwd_fused_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx in x's dtype, dw in ``accum_dtype``): dgrad through the K-flipped
     table (the self-map's reverse) and wgrad through the table."""
-    _check_self_map("depthwise_fma_bwd_fused", x, table, offsets)
+    check_self_map("depthwise_fma_bwd_fused", x, table, offsets)
     dx = depthwise_fma_dgrad_plain(g, weight, table.flip(1), accum_dtype).to(x.dtype)
     return dx, depthwise_fma_wgrad_plain(x, g, table, accum_dtype)
 
@@ -249,7 +249,7 @@ def depthwise_fma_bwd_fused(
     if x.device.type == "cpu":
         return depthwise_fma_bwd_fused_plain(x, g, weight, table, offsets, accum_dtype)
     name = "depthwise_fma_bwd_fused"
-    _check_self_map(name, x, table, offsets)
+    check_self_map(name, x, table, offsets)
     lib, stream = _cuda_args(name, accum_dtype, (x, g), table, weight)
     b, n, c = x.shape
     if g.shape != x.shape:

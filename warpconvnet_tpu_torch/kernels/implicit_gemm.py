@@ -60,7 +60,7 @@ def offsets_symmetric(offsets: np.ndarray) -> bool:
     return bool(np.array_equal(offsets[::-1], -offsets))
 
 
-def _gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x [B, N, C] rows at idx [B, M]; zero rows where idx is -1."""
     t = idx.to(torch.int64)
     rows = torch.gather(x, 1, t.clamp(min=0)[..., None].expand(-1, -1, x.shape[-1]))
@@ -78,7 +78,7 @@ def implicit_gemm_fwd_plain(
     k_vol, n_out = table.shape[1], table.shape[2]
     acc = torch.zeros((b, n_out, weight.shape[-1]), dtype=accum_dtype, device=x.device)
     for k in range(k_vol):
-        acc += _gather_rows(x, table[:, k]).to(accum_dtype) @ weight[k].to(accum_dtype)
+        acc += gather_rows(x, table[:, k]).to(accum_dtype) @ weight[k].to(accum_dtype)
     return acc.to(x.dtype)
 
 
@@ -103,12 +103,15 @@ def implicit_gemm_wgrad_plain(
     contraction over all rows of all scenes (the JAX ``_wgrad_impl``)."""
     g = g.to(accum_dtype)
     return torch.stack([
-        torch.einsum("bmc,bmd->cd", _gather_rows(x, table[:, k]).to(accum_dtype), g)
+        torch.einsum("bmc,bmd->cd", gather_rows(x, table[:, k]).to(accum_dtype), g)
         for k in range(table.shape[1])
     ])
 
 
-def _check_self_map(name: str, x: torch.Tensor, table: torch.Tensor, offsets) -> None:
+def check_self_map(name: str, x: torch.Tensor, table: torch.Tensor, offsets) -> None:
+    """Raise unless ``table`` is a self-map (n_in == n_out) over symmetric
+    ``offsets``, one per table row: what a fused self-map backward (K4, K8)
+    takes."""
     if not offsets_symmetric(offsets):
         raise ValueError(f"{name}: offsets are not symmetric (offsets[K-1-k] != -offsets[k])")
     if len(offsets) != table.shape[1]:
@@ -129,7 +132,7 @@ def implicit_gemm_bwd_fused_plain(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx in x's dtype, dw in ``accum_dtype``): dgrad through the K-flipped
     table (the self-map's reverse) and wgrad through the table."""
-    _check_self_map("implicit_gemm_bwd_fused", x, table, offsets)
+    check_self_map("implicit_gemm_bwd_fused", x, table, offsets)
     dx = implicit_gemm_dgrad_plain(g, weight, table.flip(1), accum_dtype).to(x.dtype)
     return dx, implicit_gemm_wgrad_plain(x, g, table, accum_dtype)
 
@@ -331,7 +334,7 @@ def implicit_gemm_bwd_fused(
     if x.device.type == "cpu":
         return implicit_gemm_bwd_fused_plain(x, g, weight, table, offsets, accum_dtype)
     name = "implicit_gemm_bwd_fused"
-    _check_self_map(name, x, table, offsets)
+    check_self_map(name, x, table, offsets)
     lib, stream = _cuda_args(name, accum_dtype, (x, g, weight), table)
     b, n, c_in = x.shape
     k_vol, c_in_w, c_out = weight.shape

@@ -16,10 +16,11 @@ import torch
 
 from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.geometry.voxels import Voxels, _as3
-from warpconvnet_tpu_torch.kernels.implicit_gemm import _gather_rows
+from warpconvnet_tpu_torch.kernels.implicit_gemm import gather_rows
 from warpconvnet_tpu_torch.nn.functional.sparse_conv import (
     BatchedPairTable,
     generate_output_coords_and_kernel_map,
+    table_output,
 )
 
 
@@ -33,7 +34,8 @@ def sparse_reduce(
     """Reduce features over each output's kernel-map neighbours (JAX
     ``sparse_reduce``): "max" and "min" in the features' dtype, "sum" and
     "mean" in fp32 in offset order, cast back. Outputs with no covered input
-    and pad rows are zero. Returns (pooled voxels, map)."""
+    and pad rows are zero (:func:`~.sparse_conv.table_output`). Returns
+    (pooled voxels, map)."""
     if reduction not in ("max", "min", "sum", "mean"):
         raise ValueError(f"unsupported reduction {reduction!r}")
     oc, onv, table, out_ts = generate_output_coords_and_kernel_map(
@@ -50,24 +52,16 @@ def sparse_reduce(
         acc = torch.full((b, m, c), neutral, dtype=feats.dtype, device=feats.device)
         for k in range(t.shape[1]):
             tk = t[:, k]
-            acc = op(acc, torch.where((tk >= 0)[..., None], _gather_rows(feats, tk), neutral))
+            acc = op(acc, torch.where((tk >= 0)[..., None], gather_rows(feats, tk), neutral))
         out = torch.where(count[..., None] > 0, acc, 0)
     else:
         acc = torch.zeros((b, m, c), dtype=torch.float32, device=feats.device)
         for k in range(t.shape[1]):
-            acc += _gather_rows(feats, t[:, k]).float()
+            acc += gather_rows(feats, t[:, k]).float()
         if reduction == "mean":
             acc = acc / count.clamp(min=1)[..., None]
         out = acc.to(feats.dtype)
-    row_valid = torch.arange(m, device=oc.device)[None, :] < onv[:, None]
-    out = torch.where(row_valid[..., None], out, 0)
-    # Strided outputs come out lex-sorted; stride 1 keeps the input's order.
-    pooled_sorted = True if any(s != 1 for s in _as3(stride)) else voxels.lex_sorted
-    pooled = Voxels(
-        coords=oc, features=out, num_valid=onv, voxel_size=voxels.voxel_size,
-        tensor_stride=tuple(out_ts), lex_sorted=pooled_sorted,
-    )
-    return pooled, table
+    return table_output(voxels, oc, onv, out_ts, out, _as3(stride)), table
 
 
 def sparse_max_pool(voxels, kernel_size, stride=None, out_capacity=None):
@@ -102,7 +96,7 @@ def sparse_unpool(
     several entries the last offset's wins, as in the JAX scan. With
     ``concat_features`` the result is ``[concat_features, unpooled]`` on the
     channel axis. Pad rows are zero."""
-    out = _gather_rows(coarse.features, unpool_parents(table.rev))
+    out = gather_rows(coarse.features, unpool_parents(table.rev))
     if concat_features is not None:
         out = torch.cat([concat_features, out], dim=-1)
     out = torch.where(fine_coords_voxels.valid_mask()[..., None], out, 0)

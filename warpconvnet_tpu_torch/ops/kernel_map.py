@@ -6,8 +6,8 @@ k and output row o, the input row i with
 ``rev[B, K, N_in]`` exists because the map o -> i is injective per offset,
 and serves transposed convs.
 
-Each builder runs in a span ``wcn.map.<function>`` (``tracing``), and each
-copy of host data to the card in a span ``wcn.sync.<function>``.
+Each builder runs in a span ``wcn.map.<function>`` (``tracing``); none
+copies host data to the card.
 """
 
 from __future__ import annotations
@@ -157,12 +157,13 @@ def parity_partition_applies(
 
 def _parity_k_index(coords: torch.Tensor, kernel_size: Tuple[int, int, int]) -> torch.Tensor:
     """Offset slot of each row under the x-major enumeration, from the
-    floor-mod residue of its coordinate."""
+    floor-mod residue of its coordinate: ``c & (k - 1)`` per axis for a
+    power-of-two k, negative coordinates included (two's complement)."""
+    if not all(k > 0 and (k & (k - 1)) == 0 for k in kernel_size):
+        raise ValueError(f"parity maps: power-of-two kernels only, got {kernel_size}")
     kx, ky, kz = kernel_size
-    with tracing.span("wcn.sync.parity_k_index"):  # a copy of host data to the card
-        ks = torch.as_tensor(kernel_size, device=coords.device)
-    r = torch.remainder(coords, ks)
-    return r[..., 0] * (ky * kz) + r[..., 1] * kz + r[..., 2]
+    r = [coords[..., a] & (k - 1) for a, k in enumerate(kernel_size)]
+    return r[0] * (ky * kz) + r[1] * kz + r[2]
 
 
 @tracing.spanned("wcn.map.parity_pair_tables_from_unique")
@@ -170,7 +171,7 @@ def parity_pair_tables_from_unique(
     coords: torch.Tensor,  # [B, N, 3] int32, fine side
     valid: torch.Tensor,  # [B, N] bool
     to_unique: torch.Tensor,  # [B, N] output row per input row; out_capacity = dropped
-    kernel_size: Tuple[int, int, int],
+    kernel_size: Tuple[int, int, int],  # == stride, powers of two
     out_capacity: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(table [B, K, M], rev [B, K, N]) of a parity-partition map with one
@@ -200,17 +201,18 @@ def parity_strided_unique(
     out_capacity: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(out_coords [B, M, 3], num_unique [B], to_unique [B, N]) of the
-    floor-divided coordinates: one stable sort, a first-occurrence mask and
+    floor-divided coordinates (``c >> log2 k`` per axis, which floors
+    negative coordinates too): one stable sort, a first-occurrence mask and
     a cumsum; output rows come out in lexicographic order."""
     b, n, _ = coords.shape
     ks = tuple(int(k) for k in kernel_size)
     if not all(k > 0 and (k & (k - 1)) == 0 for k in ks):
         raise ValueError(f"parity_strided_unique: power-of-two strides only, got {ks}")
     dev = coords.device
-    with tracing.span("wcn.sync.parity_strided_unique"):  # a copy of host data to the card
-        shifts = torch.as_tensor([k.bit_length() - 1 for k in ks], dtype=torch.int32, device=dev)
     valid = torch.arange(n, device=dev)[None, :] < num_valid[:, None]
-    cdiv = torch.where(valid[..., None], coords.to(torch.int32) >> shifts, PAD_COORD)
+    c = coords.to(torch.int32)
+    shifted = torch.stack([c[..., a] >> (k.bit_length() - 1) for a, k in enumerate(ks)], dim=-1)
+    cdiv = torch.where(valid[..., None], shifted, PAD_COORD)
     sk, pay = argsort_keys(coord_keys(cdiv))
     first = torch.ones_like(valid)
     first[:, 1:] = sk[:, 1:] != sk[:, :-1]
