@@ -1306,6 +1306,105 @@ def test_k9_bwd_fp32_splits_each_visited_row_once(cuda, layout, d):
     assert got.get("k9.bwd_scratch_bytes", 0) == 0
 
 
+def _visit_case(cuda, layout, dtype, d):
+    """_k9_bwd_case's "global" (validity ids, sorted), "grouped" (24-row
+    segments, sorted) and "cross" (random ids, sorted on neither side), or
+    "interleaved": S 600 in 24-row segments whose every 7th row, query and
+    kv alike, has a far id, in turn -1 and 1000 (sorted on neither side)."""
+    if layout != "interleaved":
+        return _k9_bwd_case(cuda, layout, dtype, d)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    seg_q = (torch.arange(600, device=cuda) // 24).to(torch.int32).repeat(2, 1)
+    seg_q[:, ::14], seg_q[:, 7::14] = -1, 1000
+    q, k, v, do = (torch.randn((2, 600, 2, d), generator=gen, device=cuda) for _ in "qkvo")
+    return (q * 2).to(dtype), k.to(dtype), v.to(dtype), do.to(dtype), seg_q, seg_q.clone()
+
+
+def _visit_counts(seg_q, seg_kv, h, dtype, d):
+    """(k9.range_blocks, k9.scan_blocks) of one K9 call and of one
+    K9-dkv + K9-dq pair, by ``visit_blocks`` at each kernel's own tile."""
+    fwd = k9.visit_blocks(seg_q, seg_kv, k9.query_tile(dtype, d))
+    own = k9.bwd_own_tile(d, dtype)
+    dkv, dq = k9.visit_blocks(seg_kv, seg_q, own), k9.visit_blocks(seg_q, seg_kv, own)
+    return tuple(h * x for x in fwd), tuple(h * (x + y) for x, y in zip(dkv, dq))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 64, 128])
+@pytest.mark.parametrize("layout", ["global", "grouped", "cross", "interleaved"])
+def test_k9_family_takes_visit_ranges_where_ids_are_sorted(cuda, layout, dtype, d):
+    """K9, K9-dkv and K9-dq (one call each) against the plain versions, and
+    the blocks that took their visited tiles from the visit pre-pass or
+    scanned (device counters ``k9.range_blocks``, ``k9.scan_blocks``) equal
+    ``visit_blocks``'s count at each kernel's own tile: on validity and
+    grouped ids every block takes its range, on random and interleaved
+    sentinel ids every block scans. fp32: the rows the blocks copied in
+    (``k9.fwd_staged_rows``, ``k9.bwd_staged_rows``) equal
+    ``kv_rows_staged`` and ``bwd_rows_staged``."""
+    q, k, v, do, seg_q, seg_kv = _visit_case(cuda, layout, dtype, d)
+    h = q.shape[2]
+    tracing.reset_counters()
+    with tracing.recording():
+        out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+        fwd = tracing.counters(cuda)
+        tracing.reset_counters()
+        got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+        bwd = tracing.counters(cuda)
+    ref, ref_lse = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, return_lse=True)
+    want = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
+    torch.testing.assert_close(out.float(), ref.float(), **K9_TOL[dtype])
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=1e-5, atol=1e-5)
+    for g, r in zip(got, want):
+        assert bool(torch.isfinite(g.float()).all())
+        assert _rel(g, r) <= K9_BWD_TOL[dtype]
+    want_fwd, want_bwd = _visit_counts(seg_q, seg_kv, h, dtype, d)
+    assert (fwd["k9.range_blocks"], fwd["k9.scan_blocks"]) == want_fwd
+    assert (bwd["k9.range_blocks"], bwd["k9.scan_blocks"]) == want_bwd
+    if layout in ("global", "grouped"):
+        assert want_fwd[1] == want_bwd[1] == 0
+    else:
+        assert want_fwd[0] == want_bwd[0] == 0
+    if dtype == torch.float32:
+        assert fwd["k9.fwd_staged_rows"] == h * k9.kv_rows_staged(
+            seg_q, seg_kv, k9.query_tile(dtype, d), k9.kv_step(dtype, d))
+        assert bwd["k9.bwd_staged_rows"] == h * k9.bwd_rows_staged(
+            seg_q, seg_kv, k9.bwd_own_tile(d), k9.bwd_step(d))
+    tracing.reset_counters()  # nothing records: null counters
+    k9.segment_attention_fwd(q, k, v, seg_q, seg_kv)
+    got = tracing.counters(cuda)
+    assert got["k9.range_blocks"] == got["k9.scan_blocks"] == 0
+
+
+def test_k9_visit_ranges_take_each_scene_on_its_own(cuda):
+    """A batch of one sorted scene (24-row segments) and one interleaved
+    scene: the sorted scene's blocks take their ranges, the other's scan,
+    and each scene's out and gradients equal those of a call on it alone."""
+    q, k, v, do, seg_q, seg_kv = _visit_case(cuda, "interleaved", torch.float32, 64)
+    seg_q[0] = (torch.arange(600, device=cuda) // 24).to(torch.int32)
+    seg_kv = seg_q.clone()
+    h = q.shape[2]
+    tracing.reset_counters()
+    with tracing.recording():
+        out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+        got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+    counts = tracing.counters(cuda)
+    want_fwd, want_bwd = _visit_counts(seg_q, seg_kv, h, torch.float32, 64)
+    assert counts["k9.range_blocks"] == want_fwd[0] + want_bwd[0] == 3 * h * 5
+    assert counts["k9.scan_blocks"] == want_fwd[1] + want_bwd[1] == 3 * h * 5
+    for s in range(2):
+        one = slice(s, s + 1)
+        o1, l1 = k9.segment_attention_fwd(q[one], k[one], v[one], seg_q[one], seg_kv[one],
+                                          return_lse=True)
+        g1 = k9.segment_attention_bwd(q[one], k[one], v[one], o1, l1, do[one], seg_q[one],
+                                      seg_kv[one])
+        torch.cuda.synchronize()
+        assert torch.equal(out[one], o1) and torch.equal(lse[one], l1)
+        for g, w in zip(got, g1):
+            assert torch.equal(g[one], w)
+
+
 def test_k9_bwd_fp32_runs_head_passes_through_bounded_scratch(cuda, monkeypatch):
     """The kernels' scratch bytes are ``bwd_split_bytes``'s; with room for
     one head's split rows, fp32 K9-dkv and K9-dq run a pass a (scene, head)

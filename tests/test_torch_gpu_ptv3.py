@@ -14,7 +14,8 @@ import pytest
 import torch
 
 from tests.test_torch_gpu import (  # noqa: F401 (the cuda fixture)
-    DW_TOL, K9_BWD_TOL, K9_TOL, TOL, _rel, _voxels, cuda, launches)
+    DW_TOL, K9_BWD_TOL, K9_TOL, TOL, _rel, _visit_counts, _voxels, cuda, launches)
+from warpconvnet_tpu_torch import tracing
 from warpconvnet_tpu_torch.kernels import implicit_gemm
 from warpconvnet_tpu_torch.kernels import segment_attention as k9
 from warpconvnet_tpu_torch.models.point_transformer_v3 import build_ptv3
@@ -62,6 +63,46 @@ def test_k9_family_on_patches_at_head_size_16(cuda, dtype):
         assert g.dtype == dtype and bool(torch.isfinite(g.float()).all())
         assert _rel(g, r) <= K9_BWD_TOL[dtype]
     assert bool((got[0][pad] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("valid", [(4100, 1500), (4100, 0)])
+def test_k9_family_takes_every_visit_range_on_patch_ids(cuda, dtype, valid):
+    """On ``patch_segment_ids`` (a partial last patch and pad rows; second,
+    an all-pad scene) every block of K9, K9-dkv and K9-dq takes its visited
+    tiles from the visit pre-pass (device counter ``k9.range_blocks`` every
+    block at each kernel's own tile, ``k9.scan_blocks`` 0), the fp32 blocks
+    copy in the rows ``kv_rows_staged`` and ``bwd_rows_staged`` count, and
+    out, lse and the gradients match the plain versions."""
+    q, k, v, do, seg_q, seg_kv, pad = _patch_case(cuda, dtype, valid=valid)
+    h, d = q.shape[2], q.shape[3]
+    tracing.reset_counters()
+    with tracing.recording():
+        out, lse = k9.segment_attention_fwd(q, k, v, seg_q, seg_kv, return_lse=True)
+        fwd = tracing.counters(cuda)
+        tracing.reset_counters()
+        got = k9.segment_attention_bwd(q, k, v, out, lse, do, seg_q, seg_kv)
+        bwd = tracing.counters(cuda)
+    ref, ref_lse = k9.segment_attention_fwd_plain(q, k, v, seg_q, seg_kv, return_lse=True)
+    want = k9.segment_attention_bwd_plain(q, k, v, out, lse, do, seg_q, seg_kv)
+    torch.testing.assert_close(out.float(), ref.float(), **K9_TOL[dtype])
+    finite = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), finite)
+    torch.testing.assert_close(lse[finite], ref_lse[finite], rtol=1e-5, atol=1e-5)
+    for g, r in zip(got, want):
+        assert _rel(g, r) <= K9_BWD_TOL[dtype]
+    assert bool((got[0][pad] == 0).all())
+    want_fwd, want_bwd = _visit_counts(seg_q, seg_kv, h, dtype, d)
+    n = q.shape[1]
+    assert want_fwd == (2 * h * -(-n // k9.query_tile(dtype, d)), 0)
+    assert want_bwd == (2 * 2 * h * -(-n // k9.bwd_own_tile(d, dtype)), 0)
+    assert (fwd["k9.range_blocks"], fwd["k9.scan_blocks"]) == want_fwd
+    assert (bwd["k9.range_blocks"], bwd["k9.scan_blocks"]) == want_bwd
+    if dtype == torch.float32:
+        assert fwd["k9.fwd_staged_rows"] == h * k9.kv_rows_staged(
+            seg_q, seg_kv, k9.query_tile(dtype, d), k9.kv_step(dtype, d))
+        assert bwd["k9.bwd_staged_rows"] == h * k9.bwd_rows_staged(
+            seg_q, seg_kv, k9.bwd_own_tile(d), k9.bwd_step(d))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

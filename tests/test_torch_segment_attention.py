@@ -192,6 +192,66 @@ def test_kv_tiles_visited_follows_the_segment_ranges():
     assert k9.kv_tiles_visited(valid, valid) == (11, 15)
 
 
+# Own rows a block of each kernel: K9 fp32 128 (64 at D 128) and bf16 192
+# (128), K9-dkv / K9-dq fp32 128 (64) and bf16 192 (64).
+_OWN_TILES = (64, 128, 192)
+
+
+def _assert_visit_rule(seg_own, seg_oth):
+    """At every kernel's own tile, both ways: the scenes are sorted and the
+    visit pre-pass's rule (``visit_ranges``) marks exactly the tiles the
+    scan marks (``_visited_tiles``, ``kv_tiles_visited``)."""
+    for own in _OWN_TILES:
+        for mine, other in ((seg_own, seg_oth), (seg_oth, seg_own)):
+            ranges, sorted_ = k9.visit_ranges(mine, other, own)
+            assert bool(sorted_.all())
+            scan = k9._visited_tiles(mine, other, own)
+            tile = torch.arange(scan.shape[2])
+            assert torch.equal((tile >= ranges[..., :1]) & (tile <= ranges[..., 1:]), scan), own
+            tiles = int((ranges[..., 1] - ranges[..., 0] + 1).clamp(min=0).sum())
+            assert tiles == k9.kv_tiles_visited(mine, other, own)[0]
+            assert k9.visit_blocks(mine, other, own) == (scan.shape[0] * scan.shape[1], 0)
+
+
+@pytest.mark.parametrize("level", range(5))
+def test_visit_ranges_are_the_scan_on_ptv3_patch_ids(level):
+    """PTv3's five level shapes scaled down by 8 (32768 >> level rows a
+    scene, 1024-row patches), the bench pair's valid shares (30% and 44%,
+    odd, so the last patch is partial; level 4 fits in two patches)."""
+    n = 32768 >> level
+    num_valid = torch.tensor([int(0.297 * n) | 1, int(0.439 * n) | 1])
+    _assert_visit_rule(*tfa.patch_segment_ids(num_valid, n, 1024))
+
+
+def test_visit_ranges_are_the_scan_on_validity_ids():
+    """Volt's ids (``segment_ids_from_valid`` over a valid prefix): scenes
+    of 300 rows with 200, 0 (all pad) and 300 valid, self and cross (Sq 70
+    over the same scenes' kv rows)."""
+    valid = torch.arange(300)[None] < torch.tensor([[200], [0], [300]])
+    seg = tfa.segment_ids_from_valid(valid)
+    _assert_visit_rule(seg, seg)
+    _assert_visit_rule(tfa.segment_ids_from_valid(valid[:, :70]), seg)
+
+
+def test_visit_ranges_are_the_scan_on_partial_and_all_pad_patches():
+    """Patch ids of 5000 rows (not a multiple of a tile) with a partial
+    last patch (4100 valid) and an all-pad scene (0 valid)."""
+    _assert_visit_rule(*tfa.patch_segment_ids(torch.tensor([4100, 0]), 5000, 1024))
+
+
+def test_visit_ranges_report_the_scan_on_interleaved_sentinels():
+    """The range skip's worst case, every 7th row's id far below or above
+    the rest (-1, 1000): not sorted, so every block scans. One sorted scene
+    beside it is taken on its own."""
+    seg = (torch.arange(600) // 24).to(torch.int32).repeat(2, 1)
+    seg[1, ::14], seg[1, 7::14] = -1, 1000
+    ranges, sorted_ = k9.visit_ranges(seg, seg, 128)
+    assert sorted_.tolist() == [True, False]
+    assert ranges.shape == (2, 5, 2)
+    assert k9.visit_blocks(seg, seg, 128) == (5, 5)
+    assert k9.visit_blocks(seg[1:], seg[1:], 64) == (0, 10)
+
+
 @pytest.mark.parametrize("dtype,d,qt,step", [
     (torch.float32, 16, 128, 64), (torch.float32, 64, 128, 64), (torch.float32, 128, 64, 32),
     (torch.bfloat16, 64, 192, 64), (torch.bfloat16, 128, 128, 64)])

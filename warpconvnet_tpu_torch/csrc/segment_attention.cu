@@ -23,7 +23,10 @@
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it). Strides are
 // in elements; the wrapper checks 16-byte alignment of every row. lse may be
-// null. fp32 only: `split` is scratch of
+// null. `visit` is scratch of wct_segment_attention_visit_ints(b, sq) ints
+// for the visit pre-pass (segment_attention_visit.cu), and `visits` (or
+// null) two int64 counters: the blocks that took their visited tiles from
+// it, and those that scanned. fp32 only: `split` is scratch of
 // wct_segment_attention_fwd_split_bytes(per_pass, skv, h, d) bytes, 16-byte
 // aligned, through which per_pass scenes run at a time, and `staged` (or
 // null) an int64 counter of the kv rows the blocks copy in; bf16 ignores
@@ -34,12 +37,13 @@ extern "C" int wct_segment_attention_fwd(const void* q, const void* k, const voi
                                          int64_t q_sb, int64_t q_ss, int64_t k_sb, int64_t k_ss,
                                          int64_t v_sb, int64_t v_ss, float scale, int dtype,
                                          void* split, int per_pass, int64_t* staged,
-                                         cudaStream_t stream) {
+                                         int32_t* visit, int64_t* visits, cudaStream_t stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
   const int kv_tiles = (skv + wct::seg_fwd::TILE - 1) / wct::seg_fwd::TILE;
   const wct::seg_fwd::Args a{q, k, v, seg_q, seg_kv, out, lse, sq, skv, h,
                              q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale * wct::seg_bwd::LOG2E,
-                             (kv_tiles + 31) / 32};
+                             (kv_tiles + 31) / 32, visit,
+                             reinterpret_cast<unsigned long long*>(visits)};
   if (dtype == 0)
     return wct::seg_fwd::launch_tf32(a, b, d, split, per_pass,
                                      reinterpret_cast<unsigned long long*>(staged), stream);

@@ -48,11 +48,12 @@ int launch_d(const Args& a, int b, int d, int dtype, void* split, int per_pass, 
 Args make_args(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* di, const int32_t* seg_q, const int32_t* seg_kv, void* dq, void* dk,
                void* dv, int sq, int skv, int h, const int64_t* strides, float scale,
-               int other_rows) {
+               int other_rows, int32_t* visit, int64_t* visits) {
   const int tiles = (other_rows + TILE - 1) / TILE;
   return Args{q, k, v, dout, lse, di, seg_q, seg_kv, dq, dk, dv, sq, skv, h,
               strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-              strides[6], strides[7], scale, scale * LOG2E, (tiles + 31) / 32};
+              strides[6], strides[7], scale, scale * LOG2E, (tiles + 31) / 32, visit,
+              reinterpret_cast<unsigned long long*>(visits)};
 }
 
 }  // namespace
@@ -60,7 +61,11 @@ Args make_args(const void* q, const void* k, const void* v, const void* dout, co
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout and the gradients share
 // it). strides: the batch and row strides, in elements, of q, k, v and
 // dout, in that order; the wrapper checks 16-byte alignment of every row.
-// Every row of dk and dv (dq) is written. fp32 only: `split` is scratch of
+// Every row of dk and dv (dq) is written. `visit` is scratch of
+// wct_segment_attention_visit_ints(b, own rows) ints (own rows: Skv for
+// K9-dkv, Sq for K9-dq) for the visit pre-pass, and `visits` (or null) two
+// int64 counters of the blocks that took their visited tiles from it and
+// of those that scanned. fp32 only: `split` is scratch of
 // wct_segment_attention_bwd_split_bytes(per_pass, rows, d, dkv) bytes
 // (rows: Sq for K9-dkv, Skv for K9-dq), 16-byte aligned, through which
 // one scene and per_pass of its heads run at a time, and `staged` (or
@@ -72,10 +77,11 @@ extern "C" int wct_segment_attention_bwd_dkv(const void* q, const void* k, const
                                              void* dk, void* dv, int b, int sq, int skv, int h,
                                              int d, const int64_t* strides, float scale,
                                              int dtype, void* split, int per_pass,
-                                             int64_t* staged, cudaStream_t stream) {
+                                             int64_t* staged, int32_t* visit, int64_t* visits,
+                                             cudaStream_t stream) {
   if (b == 0 || skv == 0 || h == 0) return 0;
   const Args a = make_args(q, k, v, dout, lse, di, seg_q, seg_kv, nullptr, dk, dv, sq, skv, h,
-                           strides, scale, sq);
+                           strides, scale, sq, visit, visits);
   return launch_d<true>(a, b, d, dtype, split, per_pass, staged, stream);
 }
 
@@ -85,10 +91,10 @@ extern "C" int wct_segment_attention_bwd_dq(const void* q, const void* k, const 
                                             void* dq, int b, int sq, int skv, int h, int d,
                                             const int64_t* strides, float scale, int dtype,
                                             void* split, int per_pass, int64_t* staged,
-                                            cudaStream_t stream) {
+                                            int32_t* visit, int64_t* visits, cudaStream_t stream) {
   if (b == 0 || sq == 0 || h == 0) return 0;
   const Args a = make_args(q, k, v, dout, lse, di, seg_q, seg_kv, dq, nullptr, nullptr, sq, skv,
-                           h, strides, scale, skv);
+                           h, strides, scale, skv, visit, visits);
   return launch_d<false>(a, b, d, dtype, split, per_pass, staged, stream);
 }
 

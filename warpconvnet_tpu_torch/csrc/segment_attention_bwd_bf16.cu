@@ -129,7 +129,8 @@ __global__ void __launch_bounds__(NWG * WG, NWG == 1 ? 2 : 1) seg_attn_bwd_bf16(
   const int n_own = DKV ? a.skv : a.sq, n_oth = DKV ? a.sq : a.skv;
   const int32_t* sown = (DKV ? a.seg_kv : a.seg_q) + int64_t(b) * n_own;
   const int32_t* soth = (DKV ? a.seg_q : a.seg_kv) + int64_t(b) * n_oth;
-  mark_tiles<NT, OWN>(sown, n_own, own0, soth, n_oth, a.nwords, seg_own, bits, range);
+  mark_tiles<NT, OWN>(sown, n_own, own0, soth, n_oth, a.nwords,
+                      scene_visit(a.visit, b, n_own, OWN), a.visits, seg_own, bits, range);
   // A full tile pair (every own and visited row valid, one segment) needs
   // no mask: the own rows must be uniform, the visited tile is voted on.
   const int own_lo = range[0];
@@ -352,7 +353,10 @@ int launch(const Args& a, int b, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(bytes));
   if (err != cudaSuccess) return int(err);
-  const int n_own = DKV ? a.skv : a.sq;
+  const int n_own = DKV ? a.skv : a.sq, n_oth = DKV ? a.sq : a.skv;
+  const int rc = launch_visit(DKV ? a.seg_kv : a.seg_q, n_own, DKV ? a.seg_q : a.seg_kv, n_oth, b,
+                              NWG * TILE, a.visit, stream);
+  if (rc != 0) return rc;
   const dim3 grid((n_own + NWG * TILE - 1) / (NWG * TILE), a.h, b);
   kernel<<<grid, NWG * WG, bytes, stream>>>(a);
   return int(cudaGetLastError());

@@ -100,10 +100,10 @@ struct Cfg {
   static constexpr int NWG = D > 64 ? 1 : 2;    // consumer warpgroups, 64 own rows each
   static constexpr int VIS = D > 64 ? 16 : 32;  // visited rows a step
   // The producer: a warpgroup, or in K9-dq at D 16 a warp, so that two
-  // blocks fit an SM (80 registers a thread). At PTv3's patch shapes each
-  // block's scan of the segment ids (mark_tiles) sets the time, and two
-  // blocks scan with more threads; K9-dkv spills at 80 registers and
-  // scans faster with the warpgroup than with a warp.
+  // blocks fit an SM (80 registers a thread). Chosen while every block at
+  // PTv3's patch shapes scanned all of its scene's segment ids (two blocks
+  // scanned with more threads; K9-dkv spills at 80 registers and scanned
+  // faster with the warpgroup than with a warp).
   __host__ __device__ static constexpr bool paired(bool dkv) { return D <= 16 && !dkv; }
   __host__ __device__ static constexpr int nt(bool dkv) {  // the consumers, then the producer
     return NWG * WG + (paired(dkv) ? 32 : WG);
@@ -289,7 +289,9 @@ __global__ void __launch_bounds__(Cfg<D>::nt(DKV), Cfg<D>::min_blocks(DKV))
   const int n_own = DKV ? a.skv : a.sq, n_oth = DKV ? a.sq : a.skv;
   const int32_t* sown = (DKV ? a.seg_kv : a.seg_q) + int64_t(bs) * n_own;
   const int32_t* soth = (DKV ? a.seg_q : a.seg_kv) + int64_t(bs) * n_oth;
-  mark_tiles<C::nt(DKV), OWN>(sown, n_own, own0, soth, n_oth, a.nwords, seg_own, bits, range);
+  mark_tiles<C::nt(DKV), OWN>(sown, n_own, own0, soth, n_oth, a.nwords,
+                              scene_visit(a.visit, bs, n_own, OWN), a.visits, seg_own, bits,
+                              range);
   // A full step (every own and visited row valid, one segment) needs no
   // mask: the own rows must be uniform, the visited rows are voted on.
   const int own_lo = range[0];
@@ -593,6 +595,9 @@ int launch(const Args& a, int b, void* split, int per_pass, unsigned long long* 
                                          int(bytes));
   if (err != cudaSuccess) return int(err);
   const int n_own = DKV ? a.skv : a.sq, n_oth = DKV ? a.sq : a.skv;
+  const int rc = launch_visit(DKV ? a.seg_kv : a.seg_q, n_own, DKV ? a.seg_q : a.seg_kv, n_oth, b,
+                              C::OWN, a.visit, stream);
+  if (rc != 0) return rc;
   auto* scratch = static_cast<unsigned char*>(split);
   for (int bs = 0; bs < b; ++bs)
     for (int h0 = 0; h0 < a.h; h0 += per_pass) {

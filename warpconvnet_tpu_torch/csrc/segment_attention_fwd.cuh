@@ -14,6 +14,9 @@
 
 namespace wct::seg_fwd {
 
+using wct::seg_bwd::launch_visit;
+using wct::seg_bwd::mark_range;
+using wct::seg_bwd::scene_visit;
 using wct::seg_bwd::TILE;  // kv rows of a visited tile
 
 constexpr float LN2 = 0.6931471805599453f;
@@ -30,39 +33,25 @@ struct Args {
   int64_t q_sb, q_ss, k_sb, k_ss, v_sb, v_ss;  // batch and row strides, elements
   float scale_log2;                            // softmax scale * log2(e)
   int nwords;                                  // bitmask words: ceil(kv tiles / 32)
+  int32_t* visit;              // the visit pre-pass's output (seg_bwd::visit_ints ints)
+  unsigned long long* visits;  // [2]: blocks that took the range, that scanned; or null
 };
 
-// Loads the own query rows' segment ids into seg_own (rows past sq get
-// INT_MAX and are left out of the range) and sets bit t of `bits` for
-// every kv tile t that holds a row j < skv with seg_kv[j] in [min, max] of
-// the own rows' segments: the backward's rule (mark_tiles of
-// segment_attention_bwd.cuh), with each warp reading 128 ids a round, four
-// a lane and two rounds' loads in flight. Every block scans all of seg_kv,
-// so where a block visits few tiles (segments of 1024 rows) the scan is
-// much of its time. NT threads (at least OWN); ends with the block
-// synchronised.
+// Loads the own query rows' segment ids into seg_own and sets bit t of
+// `bits` for every kv tile t that holds a row j < skv with seg_kv[j] in
+// [min, max] of the own rows' segments: the backward's rule (mark_tiles of
+// segment_attention_bwd.cuh). Where the scene's kv ids are sorted the bits
+// come from the visit pre-pass's range (mark_range); otherwise the block
+// scans all of seg_kv, each warp reading 128 ids a round, four a lane and
+// two rounds' loads in flight. NT threads (at least OWN); ends with the
+// block synchronised.
 template <int NT, int OWN>
 __device__ void mark_kv_tiles(const int32_t* seg_q, int sq, int own0, const int32_t* seg_kv,
-                              int skv, int nwords, int32_t* seg_own, unsigned* bits,
+                              int skv, int nwords, const int32_t* visit,
+                              unsigned long long* visits, int32_t* seg_own, unsigned* bits,
                               int* range) {
+  if (mark_range<NT, OWN>(seg_q, sq, own0, nwords, visit, visits, seg_own, bits, range)) return;
   const int t = threadIdx.x;
-  for (int i = t; i < nwords; i += NT) bits[i] = 0u;
-  if (t == 0) {
-    range[0] = INT_MAX;
-    range[1] = INT_MIN;
-  }
-  __syncthreads();
-  if (t < OWN) {
-    const int r = own0 + t;
-    int s = INT_MAX;
-    if (r < sq) {
-      s = seg_q[r];
-      atomicMin(&range[0], s);
-      atomicMax(&range[1], s);
-    }
-    seg_own[t] = s;
-  }
-  __syncthreads();
   const int lo = range[0], hi = range[1];
   const int lane = t & 31;
   const bool vec = (reinterpret_cast<uintptr_t>(seg_kv) & 15) == 0;

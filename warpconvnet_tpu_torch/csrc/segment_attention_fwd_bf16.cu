@@ -132,8 +132,8 @@ __global__ void __launch_bounds__(kThreads<D>, 1) seg_attn_fwd_bf16(Args a) {
   const int hh = blockIdx.y;
   const int b = blockIdx.z;
   const int32_t* skv = a.seg_kv + int64_t(b) * a.skv;
-  mark_kv_tiles<NT, OWN>(a.seg_q + int64_t(b) * a.sq, a.sq, own0, skv, a.skv, a.nwords, seg_own,
-                         bits, range);
+  mark_kv_tiles<NT, OWN>(a.seg_q + int64_t(b) * a.sq, a.sq, own0, skv, a.skv, a.nwords,
+                         scene_visit(a.visit, b, a.sq, OWN), a.visits, seg_own, bits, range);
   // A full tile pair (every own and visited row valid, one segment) needs
   // no mask: the own rows must be uniform, the visited tile is voted on.
   const int own_lo = range[0];
@@ -385,6 +385,8 @@ int launch(const Args& a, int b, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(bytes));
   if (err != cudaSuccess) return int(err);
+  const int rc = launch_visit(a.seg_q, a.sq, a.seg_kv, a.skv, b, OWN, a.visit, stream);
+  if (rc != 0) return rc;
   const dim3 grid((a.sq + OWN - 1) / OWN, a.h, b);
   kernel<<<grid, kThreads<D>, bytes, stream>>>(a);
   return int(cudaGetLastError());

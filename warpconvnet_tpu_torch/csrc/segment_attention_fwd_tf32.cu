@@ -44,7 +44,8 @@
 // each (two at D <= 64, one at D 128) and one producer warpgroup, walking
 // the kv tiles. The own tile's [min, max] segment range marks the visited
 // 64-row kv tiles in a shared bitmask (mark_kv_tiles,
-// segment_attention_fwd.cuh), so every segment layout stays exact; a
+// segment_attention_fwd.cuh: from the visit pre-pass's range where the kv
+// ids are sorted, else by a scan), so every segment layout stays exact; a
 // visited tile is taken VIS rows at a time (64; 32 at D 128, where Q's
 // tiles take a third of shared memory). One thread of the producer
 // warpgroup copies each visited step's image and ids into a free stage of
@@ -227,7 +228,7 @@ __global__ void __launch_bounds__(Cfg<D>::NT, 1)
   const int z = blockIdx.z, b = b0 + z;
   const int32_t* skv = a.seg_kv + int64_t(b) * a.skv;
   mark_kv_tiles<C::NT, OWN>(a.seg_q + int64_t(b) * a.sq, a.sq, own0, skv, a.skv, a.nwords,
-                            seg_own, bits, range);
+                            scene_visit(a.visit, b, a.sq, OWN), a.visits, seg_own, bits, range);
   // A full step (every own and visited row valid, one segment) needs no
   // mask: the own rows must be uniform, the visited rows are voted on.
   const int own_lo = range[0];
@@ -476,6 +477,8 @@ int launch(const Args& a, int b, void* split, int per_pass, unsigned long long* 
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          int(bytes));
   if (err != cudaSuccess) return int(err);
+  const int rc = launch_visit(a.seg_q, a.sq, a.seg_kv, a.skv, b, C::OWN, a.visit, stream);
+  if (rc != 0) return rc;
   auto* scratch = static_cast<unsigned char*>(split);
   for (int b0 = 0; b0 < b; b0 += per_pass) {
     const int nb = b - b0 < per_pass ? b - b0 : per_pass;

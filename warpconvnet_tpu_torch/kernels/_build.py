@@ -56,19 +56,22 @@ _SIGNATURES = {
     "wct_depth_bwd_fused": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
     # int wct_segment_attention_fwd(q, k, v, seg_q, seg_kv, out, lse, b, sq, skv, h, d,
     #                               q_sb, q_ss, k_sb, k_ss, v_sb, v_ss, scale, dtype,
-    #                               split, per_pass, staged, stream)
+    #                               split, per_pass, staged, visit, visits, stream)
     "wct_segment_attention_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                  _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P, _I, _P, _P],
+                                  _L, _L, _L, _L, _L, _L, ctypes.c_float, _I, _P, _I, _P,
+                                  _P, _P, _P],
     # int wct_segment_attention_bwd_dkv(q, k, v, dout, lse, di, seg_q, seg_kv, dk, dv,
     #                                   b, sq, skv, h, d, strides[8], scale, dtype,
-    #                                   split, per_pass, staged, stream)
+    #                                   split, per_pass, staged, visit, visits, stream)
     "wct_segment_attention_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P, _I, _P, _P],
+                                      _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P, _I, _P,
+                                      _P, _P, _P],
     # int wct_segment_attention_bwd_dq(q, k, v, dout, lse, di, seg_q, seg_kv, dq,
     #                                  b, sq, skv, h, d, strides[8], scale, dtype,
-    #                                  split, per_pass, staged, stream)
+    #                                  split, per_pass, staged, visit, visits, stream)
     "wct_segment_attention_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                     _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P, _I, _P, _P],
+                                     _I, _I, _I, _I, _I, _P, ctypes.c_float, _I, _P, _I, _P,
+                                     _P, _P, _P],
 }
 
 
@@ -160,6 +163,9 @@ def load_library() -> ctypes.CDLL:
             # int64 wct_segment_attention_bwd_split_bytes(nh, rows, d, dkv)
             lib.wct_segment_attention_bwd_split_bytes.argtypes = [_I, _I, _I, _I]
             lib.wct_segment_attention_bwd_split_bytes.restype = _L
+            # int64 wct_segment_attention_visit_ints(b, n_own)
+            lib.wct_segment_attention_visit_ints.argtypes = [_I, _I]
+            lib.wct_segment_attention_visit_ints.restype = _L
             _lib = lib
         return _lib
 

@@ -30,6 +30,16 @@ scratch is freed before K9-dq takes its own): host counters
 ``k9.bwd_split_rows`` (B H (Sq + Skv) a backward) and
 ``k9.bwd_scratch_bytes`` (the bytes each call allocated for them, summed
 over calls) and device counter ``k9.bwd_staged_rows``.
+
+Every kernel visits the other side's 64-row tiles that hold a row whose
+segment id lies in [min, max] of a block's own rows' ids. A pre-pass a call
+(``seg_attn_visit_ranges``, ``csrc/segment_attention_visit.cu``) finds
+those tiles once: where a scene's other-side ids rise along the row they
+are one run, found by two binary searches; a block of such a scene takes
+its range, a block of any other scene scans all of its scene's ids.
+:func:`visit_ranges` is the rule in plain PyTorch; device counters
+``k9.range_blocks`` and ``k9.scan_blocks`` count the blocks of each kind
+while recording (:func:`visit_blocks`).
 """
 
 from __future__ import annotations
@@ -162,11 +172,13 @@ def segment_attention_fwd(
         per_pass, nbytes = split_scratch(lib, b, skv, h, d)
         split = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
         staged = tracing.counter_ptr(q.device, "k9.fwd_staged_rows")
+    visit = _visit_scratch(lib, b, sq, q.device)
     rc = lib.wct_segment_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), seg_q.data_ptr(), seg_kv.data_ptr(),
         out.data_ptr(), None if lse is None else lse.data_ptr(), b, sq, skv, h, d, *strides,
         float(scale if scale is not None else d ** -0.5), _DTYPE_CODES[q.dtype],
-        None if split is None else split.data_ptr(), per_pass, staged,
+        None if split is None else split.data_ptr(), per_pass, staged, visit.data_ptr(),
+        tracing.counter_ptr(q.device, "k9.range_blocks"),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, name)
@@ -174,6 +186,14 @@ def segment_attention_fwd(
     if split is not None:
         tracing.add("k9.fwd_split_rows", b * h * skv)
     return (out, lse) if return_lse else out
+
+
+def _visit_scratch(lib: ctypes.CDLL, b: int, n_own: int, device: torch.device) -> torch.Tensor:
+    """Scratch of the visit pre-pass for ``b`` scenes of ``n_own`` own rows
+    (the kernels' count of int32s). The kernels' counter pointer for it is
+    ``k9.range_blocks``'s, whose next slot is ``k9.scan_blocks``."""
+    return torch.empty(lib.wct_segment_attention_visit_ints(b, n_own), dtype=torch.int32,
+                       device=device)
 
 
 def split_scratch(lib: ctypes.CDLL, b: int, skv: int, h: int, d: int) -> Tuple[int, int]:
@@ -306,11 +326,13 @@ def _bwd_launch(name, q, k, v, do, lse, di, seg_q, seg_kv, scale, shapes):
         per_pass, nbytes = bwd_split_scratch(one, h)
         split = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
         staged = tracing.counter_ptr(q.device, "k9.bwd_staged_rows")
+    visit = _visit_scratch(lib, b, skv if dkv else sq, q.device)
     rc = getattr(lib, f"wct_{name}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
         seg_q.data_ptr(), seg_kv.data_ptr(), *(t.data_ptr() for t in outs), b, sq, skv, h, d,
         (ctypes.c_int64 * 8)(*strides), float(scale if scale is not None else d ** -0.5),
         _DTYPE_CODES[q.dtype], None if split is None else split.data_ptr(), per_pass, staged,
+        visit.data_ptr(), tracing.counter_ptr(q.device, "k9.range_blocks"),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, rc, name)
@@ -390,6 +412,16 @@ def kv_step(dtype: torch.dtype, d: int) -> int:
     return 32 if dtype == torch.float32 and d > 64 else KV_TILE
 
 
+def _tile_ranges(seg: torch.Tensor, own: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(min, max) [B, tiles] of the segment ids of each tile of ``own``
+    rows."""
+    b, n = seg.shape
+    nt = -(-n // own)
+    big, small = torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
+    padded = torch.nn.functional.pad(seg, (0, nt * own - n), value=big).reshape(b, nt, own)
+    return padded.amin(dim=2), torch.where(padded == big, small, padded).amax(dim=2)
+
+
 def _visited_tiles(seg_q: torch.Tensor, seg_kv: torch.Tensor, qt: int) -> torch.Tensor:
     """[B, query tiles, kv tiles] bool: the kernel's rule, a kv tile is
     visited when one of its rows has a segment inside the query tile's
@@ -397,16 +429,44 @@ def _visited_tiles(seg_q: torch.Tensor, seg_kv: torch.Tensor, qt: int) -> torch.
     b, sq = seg_q.shape
     skv = seg_kv.shape[1]
     nq, nkv = -(-sq // qt), -(-skv // KV_TILE)
-    big, small = torch.iinfo(torch.int32).max, torch.iinfo(torch.int32).min
-    sqp = torch.nn.functional.pad(seg_q, (0, nq * qt - sq), value=big).reshape(b, nq, qt)
-    lo = sqp.amin(dim=2)
-    hi = torch.where(sqp == big, small, sqp).amax(dim=2)
+    lo, hi = _tile_ranges(seg_q, qt)
     out = torch.zeros((b, nq, nkv), dtype=torch.bool, device=seg_q.device)
     for i in range(nq):
         inside = (seg_kv >= lo[:, i, None]) & (seg_kv <= hi[:, i, None])  # [B, Skv]
         inside = torch.nn.functional.pad(inside, (0, nkv * KV_TILE - skv))
         out[:, i] = inside.reshape(b, nkv, KV_TILE).any(dim=2)
     return out
+
+
+def visit_ranges(seg_own: torch.Tensor, seg_oth: torch.Tensor,
+                 own: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The visit pre-pass's rule in plain PyTorch. Returns (ranges [B,
+    own tiles, 2], sorted [B]): each tile of ``own`` rows of ``seg_own``'s
+    side visits the other side's ``KV_TILE``-row tiles ``ranges[..., 0]``
+    to ``ranges[..., 1]`` (none where the second is below the first), found
+    by two binary searches for the tile's [min, max] among ``seg_oth``;
+    ``sorted`` says whether the scene's ``seg_oth`` is non-decreasing along
+    the row. Only then are its ranges :func:`_visited_tiles`' rows, and its
+    blocks take them; the blocks of a scene that is not sorted scan all of
+    its ids (their ranges mean nothing)."""
+    lo, hi = _tile_ranges(seg_own, own)
+    sorted_ = (seg_oth[:, 1:] >= seg_oth[:, :-1]).all(dim=1)
+    j0 = torch.searchsorted(seg_oth, lo)
+    j1 = torch.searchsorted(seg_oth, hi, right=True)
+    some = j0 < j1
+    first = torch.where(some, j0 // KV_TILE, 0)
+    last = torch.where(some, (j1 - 1) // KV_TILE, -1)
+    return torch.stack([first, last], dim=-1), sorted_
+
+
+def visit_blocks(seg_own: torch.Tensor, seg_oth: torch.Tensor, own: int) -> Tuple[int, int]:
+    """(blocks that take their range, blocks that scan) of one kernel call
+    whose blocks own tiles of ``own`` rows of ``seg_own``'s side and visit
+    ``seg_oth``'s, by :func:`visit_ranges`. Per head; the kernels'
+    ``k9.range_blocks`` and ``k9.scan_blocks`` are these times the heads."""
+    ranges, sorted_ = visit_ranges(seg_own, seg_oth, own)
+    n_sorted = int(sorted_.sum())
+    return n_sorted * ranges.shape[1], (len(sorted_) - n_sorted) * ranges.shape[1]
 
 
 def kv_tiles_visited(seg_q: torch.Tensor, seg_kv: torch.Tensor,
@@ -439,9 +499,11 @@ def kv_rows_staged(seg_q: torch.Tensor, seg_kv: torch.Tensor, qt: int, step: int
     return _rows_staged(seg_q, seg_kv, qt, step)
 
 
-def bwd_own_tile(d: int) -> int:
-    """Own rows a block of fp32 K9-dkv and K9-dq: two warpgroups of 64 (one
-    at D 128)."""
+def bwd_own_tile(d: int, dtype: torch.dtype = torch.float32) -> int:
+    """Own rows a block of K9-dkv and K9-dq: fp32 two warpgroups of 64 (one
+    at D 128), bf16 three (one at D 128)."""
+    if dtype == torch.bfloat16:
+        return 3 * 64 if d <= 64 else 64
     return 128 if d <= 64 else 64
 
 

@@ -42,8 +42,9 @@ _profiler_enabled = torch.autograd._profiler_enabled
 _NULL = contextlib.nullcontext()
 _forced = 0  # open recording() contexts
 
-# Device slots, in this order; K1's and K4's pairs are adjacent, as their
-# kernels take one pointer and add to it and to the next slot.
+# Device slots, in this order; K1's, K4's and the K9 family's visit pairs
+# are adjacent, as their kernels take one pointer and add to it and to the
+# next slot.
 DEVICE_KEYS = (
     "k1.tiles",  # K1 tiles with a valid query
     "k1.wide_tiles",  # of those, walked in device memory (the window did not fit)
@@ -57,6 +58,8 @@ DEVICE_KEYS = (
     "k7.dw_floats",  # floats K7's blocks added into dw
     "k9.fwd_staged_rows",  # fp32 K9: kv rows its blocks copied in (pre-split, by bulk copy)
     "k9.bwd_staged_rows",  # fp32 K9-dkv and K9-dq: visited rows their blocks copied in (as K9)
+    "k9.range_blocks",  # K9 family: blocks that took their visited tiles from the visit pre-pass
+    "k9.scan_blocks",  # K9 family: blocks that scanned their scene's ids instead (not sorted)
 )
 _SLOT = {k: i for i, k in enumerate(DEVICE_KEYS)}
 _device_counts: Dict[torch.device, torch.Tensor] = {}
