@@ -143,6 +143,11 @@ class Run:
         if dropped:
             raise ValueError(f"{self.cell.name}: the configuration's capacities drop {dropped} rows "
                              "of the pool; the cell would time less than the model's work")
+        flipped = work.flip_dependent(self.counts)
+        if flipped:
+            raise ValueError(f"{self.cell.name}: the feed's flips change the window sums of "
+                             f"{len(flipped)} (scene, level, window) of the pool, so its counts "
+                             f"would not hold for every item; first: {flipped[0]}")
         train = self.kind == "train"
         self.entry_work = [(work.voxels(c), work.model_flops(c, cfg, train)) for c in self.counts]
         self.feed = traffic.Feed(self.pool, mix, self.seed)

@@ -9,9 +9,9 @@ traffic mix ``benchmark/traffic/<traffic>.json``, its limits
 ``mfu.infer`` read ``mfu.py``). Adding a cell, a configuration, a mix
 or a metric adds files and entries; no file here changes. A
 configuration's ``calls`` table (``sub`` of any odd kernel, ``sub3``
-the same op at k 3, ``down2``, ``up2``, ``dense``, global ``attn`` and
-``patch_attn``) is
-what ``harness/work.py`` counts its work from.
+the same op at k 3, ``down2``, ``up2``, ``dense``, global ``attn``,
+``patch_attn`` and ``window_attn``, attention within 3D windows of a
+level, shifted or not) is what ``harness/work.py`` counts its work from.
 """
 
 from __future__ import annotations

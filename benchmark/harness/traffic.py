@@ -110,7 +110,12 @@ class Feed:
     drawn from the seed. With R and the step powers of two at least 16,
     every stride-2**l level (l <= 4) and every 4^3 patch keep their cells
     up to relabelling, so the pool's work counts hold for each item (where
-    no capacity drops a cell, as set-up makes sure)."""
+    no capacity drops a cell, as set-up makes sure). Windows anchored at
+    the minimum of a level's cells (``window_attn``) keep their partition
+    under the translation and the swap; under a flip only where the scene
+    spans [0, R-1] in that axis, as the heightfield scenes do: set-up
+    counts each window sum flipped too and refuses a pool on which a flip
+    changes one (``work.flip_dependent``)."""
 
     def __init__(self, pool: Pool, mix: dict, seed: int):
         self.pool = pool

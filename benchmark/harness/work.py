@@ -11,7 +11,12 @@ the 4^3 tokens (the first ``token_capacity``), the voxels whose token is
 kept, and the rows a capacity drops (finer rows whose cell lies past its
 level's capacity, tokens' voxels likewise): a cell's set-up refuses a pool
 on which a capacity drops any, so that every cell times the model's whole
-work.
+work. Where a ``window_attn`` call names it, each (level, window,
+shift) also holds its window sum, the useful pairs of attention within
+3D windows, and the same sum of the scene flipped in x, in y and in both
+as the feed flips it: set-up refuses a pool on which a flip changes one
+(``flip_dependent``). A configuration without ``window_attn`` computes
+none of it.
 
 The call table (``calls`` in a configuration) lists each conv and
 attention call of one forward:
@@ -28,7 +33,13 @@ attention call of one forward:
   scene's tokens;
 - ``{"op": "patch_attn", "level": l, "patch": P, "heads", "head_dim"}``:
   attention within consecutive P-row patches of the level's cells in
-  serialized order (the last patch holds the rest).
+  serialized order (the last patch holds the rest);
+- ``{"op": "window_attn", "level": l, "window": w, "shift": s, "heads",
+  "head_dim"}``: attention among the level's cells that share a w^3
+  window, s 0 or w / 2, grouped as the JAX package's ``window_partition``
+  groups them: per axis ``local = cell - min + s`` over the scene's cells
+  at the level, the window ``local // w``. Its useful pairs are the sum
+  over windows of their occupancy squared.
 
 each with an optional ``count``. ``patch_attn`` carries its patch on the
 call because ``patch_size`` at the top of a configuration means Volt's
@@ -40,13 +51,13 @@ only: no pad rows, no recompute, the backward twice the forward. Bytes
 count each input read once and each output written once, over the rows
 that hold a pair only (``wgrad_nbytes`` of ``chip_smoke.py``, for every
 table conv): features in the conv dtype, tables int32, weight gradients
-fp32; ``patch_attn``'s q, k, v, o and their gradients in the trunk dtype
-(the conv dtype where the configuration has none), its log-sum-exp and
-delta rows fp32. Dense calls and global ``attn`` carry no byte count.
-``patch_attn``'s bytes are this model alone: no kernel of the port runs
-serialized patch attention yet, so they are unchecked against a trace
-until the configuration that first uses the op holds them against its
-kernel's.
+fp32; ``patch_attn``'s and ``window_attn``'s q, k, v, o and their
+gradients in the trunk dtype (the conv dtype where the configuration has
+none), their log-sum-exp and delta rows fp32, over the level's cells.
+Dense calls and global ``attn`` carry no byte count. Both attention ops
+count their bytes by this one model (``_local_attn``); ``window_attn``'s
+are unchecked against a trace until the configuration that first uses
+the op holds them against its kernel's.
 """
 
 from __future__ import annotations
@@ -73,6 +84,42 @@ def _pair_kernels(cfg: dict, levels: int) -> List[Tuple[int, int]]:
     return out
 
 
+def _windows(cfg: dict) -> List[Tuple[int, int, int]]:
+    """(level, window, shift) of every ``window_attn`` call, in first use
+    order."""
+    out = []
+    for call in cfg.get("calls", []):
+        if call["op"] != "window_attn":
+            continue
+        key = (call["level"], call["window"], call["shift"])
+        if key[1] < 1 or key[2] not in (0, key[1] // 2):
+            raise ValueError(f"a window of {key[1]} shifts by 0 or {key[1] // 2}, not {key[2]}")
+        if key not in out:
+            out.append(key)
+    return out
+
+
+# The feed's flips of x and y. It maps x to R - 1 - x (R a power of two),
+# a level-l cell x to R / 2**l - 1 - x; anchored at the minimum, that is
+# the cell's window as if x were negated.
+_FLIPS = ((1, 1, 1), (-1, 1, 1), (1, -1, 1), (-1, -1, 1))
+
+
+def _window_sums(coords: torch.Tensor, window: int, shift: int) -> torch.Tensor:
+    """[4] sums over the ``window``^3 windows of one level's cells (anchored
+    at their minimum, moved by ``shift``) of the cells a window holds,
+    squared: the cells as they are, flipped in x, in y and in both."""
+    out = torch.zeros(len(_FLIPS), dtype=torch.int64, device=coords.device)
+    if coords.shape[0] == 0:
+        return out
+    for i, sign in enumerate(_FLIPS):
+        c = coords * torch.tensor(sign, dtype=coords.dtype, device=coords.device)
+        local = c - c.min(dim=0).values + shift
+        occ = torch.unique(sparse.coord_keys(local // window), return_counts=True)[1]
+        out[i] = (occ * occ).sum()
+    return out
+
+
 def _pairs(keys: torch.Tensor, coords: torch.Tensor, size: int) -> torch.Tensor:
     """Pairs of the ``size``^3 submanifold map of one level (keys sorted)."""
     n = keys.numel()
@@ -94,11 +141,16 @@ def scene_counts(coords: torch.Tensor, cfg: dict, n_cap: int) -> dict:
     kernels = _pair_kernels(cfg, levels)
     pairs = torch.zeros(len(kernels), dtype=torch.int64, device=dev)
     down = torch.zeros(max(levels - 1, 0), dtype=torch.int64, device=dev)
+    windows = _windows(cfg)
+    sums = torch.zeros((len(windows), len(_FLIPS)), dtype=torch.int64, device=dev)
     for i, level in enumerate(lv):
         keys = sparse.coord_keys(level.coords)
         for j, (at, size) in enumerate(kernels):
             if at == i:
                 pairs[j] = _pairs(keys, level.coords, size)
+        for j, (at, w, s) in enumerate(windows):
+            if at == i:
+                sums[j] = _window_sums(level.coords, w, s)
         if i > 0:
             down[i - 1] = (level.parent >= 0).sum()
             dropped += (level.parent < 0).sum()
@@ -109,10 +161,14 @@ def scene_counts(coords: torch.Tensor, cfg: dict, n_cap: int) -> dict:
         tokens[1] = (tok.parent >= 0).sum()
         dropped += (tok.parent < 0).sum()
     cells = [level.coords.shape[0] for level in lv]
-    host = torch.cat([pairs, down, tokens, dropped[None]]).tolist()
+    host = torch.cat([pairs, down, tokens, dropped[None], sums.reshape(-1)]).tolist()
+    n = len(host) - sums.numel()
+    per = [host[n + j * len(_FLIPS):n + (j + 1) * len(_FLIPS)] for j in range(len(windows))]
     return {"cells": cells, "pairs": dict(zip(kernels, host)),
             "down": host[len(kernels):len(kernels) + levels - 1],
-            "tokens": host[-3], "token_voxels": host[-2], "dropped": host[-1]}
+            "tokens": host[n - 3], "token_voxels": host[n - 2], "dropped": host[n - 1],
+            "windows": {key: p[0] for key, p in zip(windows, per)},
+            "window_flips": {key: p[1:] for key, p in zip(windows, per)}}
 
 
 def pool_counts(pool, cfg: dict, n_cap: int) -> List[List[dict]]:
@@ -126,6 +182,21 @@ def pool_counts(pool, cfg: dict, n_cap: int) -> List[List[dict]]:
             c = pool.coords[e, s, :n].to(torch.int64)
             entry.append(scene_counts(c[lex_order(c)], cfg, n_cap))
         out.append(entry)
+    return out
+
+
+def flip_dependent(counts: List[List[dict]]) -> List[str]:
+    """Each scene and (level, window, shift) of a pool whose window sum a
+    flip of the feed changes: the pool's counts would not hold for every
+    item."""
+    out = []
+    for e, entry in enumerate(counts):
+        for s, sc in enumerate(entry):
+            for (level, w, sh), flipped in sc["window_flips"].items():
+                if any(p != sc["windows"][(level, w, sh)] for p in flipped):
+                    out.append(f"entry {e} scene {s} level {level} (window {w}, shift {sh}): "
+                               f"{sc['windows'][(level, w, sh)]} pairs, flipped x, y, both "
+                               f"{flipped}")
     return out
 
 
@@ -152,14 +223,12 @@ def _table_conv(n: int, p: int, taps: int, ci: int, co: int, e: int,
     return out
 
 
-def _patch_attn(n: int, patch: int, heads: int, dim: int, e: int, train: bool) -> List[tuple]:
-    """Attention within consecutive ``patch``-row patches of n rows: the
-    useful pairs q P^2 + r^2 (q = n // P full patches, r = n % P rows in
-    the last); q, k, v and o once, an fp32 log-sum-exp a row and head; the
-    backward reads q, k, v, o and dO, writes dq, dk and dv, and reads the
-    log-sum-exp and delta rows."""
-    q, r = divmod(n, patch)
-    f = 4.0 * dim * heads * (q * patch * patch + r * r)
+def _local_attn(n: int, pairs: int, heads: int, dim: int, e: int, train: bool) -> List[tuple]:
+    """Attention of n rows among groups of them with ``pairs`` useful
+    query-key pairs in all: q, k, v and o once, an fp32 log-sum-exp a row
+    and head; the backward reads q, k, v, o and dO, writes dq, dk and dv,
+    and reads the log-sum-exp and delta rows."""
+    f = 4.0 * dim * heads * pairs
     act, row = n * heads * dim * e, n * heads * 4
     out = [("attn", f, 4 * act + row)]
     if train:
@@ -167,24 +236,35 @@ def _patch_attn(n: int, patch: int, heads: int, dim: int, e: int, train: bool) -
     return out
 
 
+OPS = ("sub", "sub3", "down2", "up2", "dense", "attn", "patch_attn", "window_attn")
+
+
 def call_work(call: dict, sc: dict, cfg: dict, train: bool) -> List[tuple]:
     """[(kind, flops, bytes)] of the kernels one call of ``call`` runs on
     one scene: the forward, and with ``train`` its backward (``fused``: dx
     and dw of a k^3 self-map in one kernel; ``dgrad`` and ``wgrad`` for
     the stride-2 convs; ``attn_bwd``). Dense calls and global attention
-    have no byte count."""
+    have no byte count. An op outside ``OPS`` is refused before any
+    lookup."""
+    op = call["op"]
+    if op not in OPS:
+        raise ValueError(f"unknown op {op!r}: the call table knows {', '.join(OPS)}")
     ci, co = call.get("c_in", 0), call.get("c_out", 0)
     e = _ELT[cfg["conv_dtype"]]
     w = 4  # fp32 weight gradients
-    op = call["op"]
     if op == "attn":
         s = sc["tokens"]
         f = 4.0 * s * s * call["head_dim"] * call["heads"]
         return [("attn", f, 0.0)] + ([("attn_bwd", 2 * f, 0.0)] if train else [])
-    if op == "patch_attn":
-        return _patch_attn(sc["cells"][call["level"]], call["patch"], call["heads"],
-                           call["head_dim"], _ELT[cfg.get("trunk_dtype", cfg["conv_dtype"])],
-                           train)
+    if op in ("patch_attn", "window_attn"):
+        n = sc["cells"][call["level"]]
+        if op == "patch_attn":
+            q, r = divmod(n, call["patch"])  # q full patches, r rows in the last
+            pairs = q * call["patch"] * call["patch"] + r * r
+        else:
+            pairs = sc["windows"][(call["level"], call["window"], call["shift"])]
+        return _local_attn(n, pairs, call["heads"], call["head_dim"],
+                           _ELT[cfg.get("trunk_dtype", cfg["conv_dtype"])], train)
     if op == "dense":
         f = 2.0 * _rows(call, sc) * ci * co
         return [("dense", f, 0.0)] + ([("dense_bwd", 2 * f, 0.0)] if train else [])
@@ -195,12 +275,7 @@ def call_work(call: dict, sc: dict, cfg: dict, train: bool) -> List[tuple]:
     fine, coarse = sc["down"][lv], sc["cells"][lv + 1]
     f = 2.0 * fine * ci * co
     wb = 8 * ci * co * e
-    if op == "down2":
-        n_in, n_out = fine, coarse
-    elif op == "up2":
-        n_in, n_out = coarse, fine
-    else:
-        raise ValueError(f"unknown op {op!r}")
+    n_in, n_out = (fine, coarse) if op == "down2" else (coarse, fine)
     # The table has 8 slots a row of its output side; its reverse, of its input side.
     out = [("fwd", f, n_in * ci * e + wb + 8 * n_out * 4 + n_out * co * e)]
     if train:

@@ -2,12 +2,14 @@
 over its kernel calls of max(FLOPs / the configuration's attention peak
 (`attn_peak`, TF32 for an fp32 trunk), bytes / HBM rate), counted by the
 benchmark (`harness/work.py`: useful attention FLOPs, 4 S^2 D H a global
-forward, 4 D H (q P^2 + r^2) a patched one, the backward twice that, no
-recompute; bytes for patched attention only), over the device time of the
-kernels this file attributes to attention by name: K9, K9-dkv and K9-dq
-(`seg_attn_*`). A call without a byte count (global attention) is bounded
-by its FLOPs alone. Read for ``attn_roofline.train`` and
-``attn_roofline.infer``."""
+forward, 4 D H (q P^2 + r^2) a patched one, 4 D H times the sum over
+windows of their cells squared a windowed one (shifted or not), the
+backward twice that, no recompute; bytes for patched and windowed
+attention, none for global), over the device time of the kernels this
+file attributes to attention by name: K9, K9-dkv and K9-dq (`seg_attn_*`),
+whichever call launched them. A call without a byte count (global
+attention) is bounded by its FLOPs alone. Read for ``attn_roofline.train``
+and ``attn_roofline.infer``."""
 
 from benchmark.harness.measure import PEAK_FLOPS, bound_s
 

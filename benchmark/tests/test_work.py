@@ -1,17 +1,23 @@
 """CPU tests of the work counter's call-table ops and of the roofline
 readers that use them: k^3 submanifold pairs against a set lookup,
-serialized patch attention against an explicit construction, ``sub`` at
-k 3 against ``sub3``, the four cells' work totals pinned, and a PTv3 call
-table at published widths counted on the pool of 80k-120k samples.
+serialized patch attention against an explicit construction, window
+attention's pair sums against a brute force and a hand count, set-up
+refusing a pool whose window sums a flip changes, ``sub`` at k 3 against
+``sub3``, an unknown op refused, the four cells' work totals pinned, and
+PTv3 and SpaCeFormer call tables at published widths counted on the pool
+of 80k-120k samples.
 
     python3 -m pytest benchmark/tests/test_work.py -q
 """
+
+from collections import Counter
 
 import numpy as np
 import pytest
 import torch
 
 from benchmark.harness import cell, measure, spec, traffic, work
+from benchmark.models import sparse
 
 SMALL_MIX = {"kind": "train", "batch": 2, "pairs": 2, "n_points": [700, 1500], "coord_range": 64,
              "augment": {"translate_step": 16, "translate_max": 1024}}
@@ -99,6 +105,138 @@ def test_patch_attn_hand_checked_example():
     call = {"op": "patch_attn", "level": 0, "patch": 1024, "heads": 2, "head_dim": 16}
     (kind, flops, _), = work.call_work(call, {"cells": [2500]}, {"conv_dtype": "bfloat16"}, False)
     assert kind == "attn" and flops == 4 * 16 * 2 * (2 * 1024 ** 2 + 452 ** 2)
+
+
+def brute_window_sum(cells, window: int, shift: int) -> int:
+    """Sum over the windows of ``cells`` (anchored at their minimum per
+    axis, moved by ``shift``) of the cells each holds, squared."""
+    low = [min(c[a] for c in cells) for a in range(3)]
+    occ = Counter(tuple((c[a] - low[a] + shift) // window for a in range(3)) for c in cells)
+    return sum(k * k for k in occ.values())
+
+
+WINDOWS = [(4, 0), (4, 2), (2, 0), (2, 1)]
+
+
+def window_cfg():
+    """Window attention at levels 0-3 at each of ``WINDOWS``."""
+    return {"levels": 4, "level_cap_floor": 1, "conv_dtype": "bfloat16",
+            "calls": [{"op": "window_attn", "level": lv, "window": w, "shift": sh, "heads": 2,
+                       "head_dim": 16} for lv in range(4) for w, sh in WINDOWS]}
+
+
+@pytest.mark.parametrize("seed", [13, 2 ** 31 + 41])
+def test_window_attn_pairs_match_a_brute_force(seed):
+    cfg = window_cfg()
+    n_cap = 4096
+    pool = traffic.make_pool(SMALL_MIX, 3, seed, "cpu", n_cap)
+    counts = work.pool_counts(pool, cfg, n_cap)
+    for e, sizes in enumerate(pool.sizes):
+        for s, n in enumerate(sizes):
+            lv = brute_levels(pool.coords[e, s, :n].numpy(), [n_cap >> i for i in range(4)])
+            got = counts[e][s]
+            assert list(got["windows"]) == [(level, w, sh) for level in range(4)
+                                            for w, sh in WINDOWS]
+            for (level, w, sh), p in got["windows"].items():
+                assert p == brute_window_sum(lv[level], w, sh), (level, w, sh)
+                assert len(lv[level]) <= p <= len(lv[level]) * w ** 3
+            call = {"op": "window_attn", "level": 2, "window": 4, "shift": 2, "heads": 2,
+                    "head_dim": 16}
+            (kind, f, b), (kind_bwd, f_bwd, b_bwd) = work.call_work(call, got, cfg, True)
+            n2 = len(lv[2])
+            assert (kind, kind_bwd) == ("attn", "attn_bwd")
+            assert f == 4 * 16 * 2 * got["windows"][(2, 4, 2)] and f_bwd == 2 * f
+            assert b == 4 * n2 * 2 * 16 * 2 + n2 * 2 * 4
+            assert b_bwd == 8 * n2 * 2 * 16 * 2 + 2 * n2 * 2 * 4
+
+
+def test_window_attn_hand_checked_example():
+    """Five cells, anchored at their minimum (5, 6, 7): windows of 4 hold
+    3, 1 and 1 of them (9 + 1 + 1 pairs); shifted by 2, they hold 2, 2
+    and 1 (4 + 4 + 1)."""
+    cells = torch.tensor([[0, 0, 0], [1, 0, 0], [3, 3, 3], [4, 0, 0], [5, 5, 5]]) + torch.tensor(
+        [5, 6, 7])
+    cfg = {"levels": 1, "conv_dtype": "float32", "trunk_dtype": "float32",
+           "calls": [{"op": "window_attn", "level": 0, "window": 4, "shift": s, "heads": 3,
+                      "head_dim": 16} for s in (0, 2)]}
+    sc = work.scene_counts(cells, cfg, 16)
+    assert sc["windows"] == {(0, 4, 0): 11, (0, 4, 2): 9}
+    (kind, flops, nbytes), = work.call_work(cfg["calls"][1], sc, cfg, False)
+    assert kind == "attn" and flops == 4 * 16 * 3 * 9
+    assert nbytes == 4 * 5 * 3 * 16 * 4 + 5 * 3 * 4
+
+
+def test_window_attn_flips_are_counted_and_a_bad_shift_is_refused():
+    """Cells at x 0, 3, 4, 5: windows of 4 from x 0 hold 2 and 2 (8
+    pairs); flipped in x, from x 5 down, 3 and 1 (10)."""
+    cells = torch.tensor([[0, 0, 0], [3, 0, 0], [4, 0, 0], [5, 0, 0]])
+    cfg = {"levels": 1, "conv_dtype": "bfloat16",
+           "calls": [{"op": "window_attn", "level": 0, "window": 4, "shift": 0, "heads": 1,
+                      "head_dim": 16}]}
+    sc = work.scene_counts(cells, cfg, 16)
+    assert sc["windows"] == {(0, 4, 0): 8} and sc["window_flips"] == {(0, 4, 0): [10, 8, 10]}
+    assert work.flip_dependent([[sc]]) == [
+        "entry 0 scene 0 level 0 (window 4, shift 0): 8 pairs, flipped x, y, both [10, 8, 10]"]
+    bad = {**cfg, "calls": [{**cfg["calls"][0], "shift": 1}]}
+    with pytest.raises(ValueError, match="shifts by 0 or 2"):
+        work.scene_counts(cells, bad, 16)
+
+
+def test_configurations_without_window_attn_count_no_windows():
+    pool = traffic.make_pool(SMALL_MIX, 3, 8, "cpu", 2048)
+    for name in ("minkunet18", "volt-s", "ptv3"):
+        for entry in work.pool_counts(pool, spec.config(name), 2048):
+            assert all(sc["windows"] == {} and sc["window_flips"] == {} for sc in entry)
+
+
+def test_a_pool_whose_window_sums_a_flip_changes_is_refused(monkeypatch):
+    """Scenes moved off x 0 (they span [1, R-1]) fall into other windows
+    when the feed flips x: set-up names the scene and level and refuses."""
+    made = traffic.make_surface_scene
+
+    def off_the_edge(rng, n_cap, coord_range, n_points):
+        c = made(rng, n_cap, coord_range, n_points)
+        c = c[c[:, 0] < coord_range - 1]
+        c[:, 0] += 1
+        return c
+
+    monkeypatch.setattr(traffic, "make_surface_scene", off_the_edge)
+    name = "minkunet18.infer"
+    c = spec.cell(name)
+    window = {"op": "window_attn", "level": 0, "window": 4, "shift": 0, "heads": 2,
+              "head_dim": 16}
+    c = c._replace(config={**c.config, "n_cap": 8192, "conv_dtype": "float32",
+                           "calls": c.config["calls"] + [window]},
+                   traffic={**c.traffic, "n_points": [700, 1500], "pairs": 1,
+                            "coord_range": 64})
+    with pytest.raises(ValueError, match=r"flips change the window sums.*entry 0 scene \d level 0"):
+        cell.Run(c, 3, 0.1, "cpu").setup()
+
+
+@pytest.mark.parametrize("seed", [7, 2 ** 31 + 3])
+def test_the_feed_keeps_every_window_sum(seed):
+    """Every item of the feed (flips, swap, translation) has the pool's
+    window sums, shifted or not, at every level."""
+    cfg = window_cfg()
+    n_cap = 4096
+    pool = traffic.make_pool(SMALL_MIX, 3, seed, "cpu", n_cap)
+    base = work.pool_counts(pool, cfg, n_cap)
+    assert work.flip_dependent(base) == []
+    feed = traffic.Feed(pool, SMALL_MIX, seed)
+    for i in range(12):
+        item = feed(i)
+        for s in range(item.coords.shape[0]):
+            n = int(item.num_valid[s])
+            c = item.coords[s, :n].to(torch.int64)
+            got = work.scene_counts(c[sparse.lex_order(c)], cfg, n_cap)
+            assert got["windows"] == base[item.entry][s]["windows"]
+
+
+def test_an_unknown_op_is_refused_by_name():
+    sc = {"cells": [10], "down": [], "pairs": {}, "windows": {}}
+    for call in ({"op": "conv5"}, {"op": "window", "level": 0}, {"op": "down3", "level": 9}):
+        with pytest.raises(ValueError, match=f"unknown op '{call['op']}'"):
+            work.call_work(call, sc, {"conv_dtype": "bfloat16"}, True)
 
 
 @pytest.mark.parametrize("kernel", [{"kernel": 3}, {}])
@@ -223,6 +361,83 @@ def test_ptv3_patch_attention_is_near_the_ridge(ptv3_counts):
         if op == "patch_attn":
             ratio = (b / measure.HBM_BYTES_PER_S) / (f / peak)
             assert 0.5 <= ratio <= 2.0, ratio
+
+
+def spaceformer_calls():
+    """One SpaCeFormer forward at the JAX package's defaults
+    (``warpconvnet_tpu/models/space_former.py``): dims (64, 128, 256, 512),
+    depths (2, 2, 6, 2), decoder depths (2, 2, 2), heads of 16 channels,
+    4^3 windows, 512-row curve patches, a 4x MLP. A 3^3 stem; block i of a
+    stage attends within windows, shifted by 2 where i % 3 is 1, or within
+    serialized patches where i % 3 is 2; 2^3 down convs, transposed up
+    convs, a 1x1 fuse of the skip concat, a 64 -> 20 head."""
+    dims, depths, dec_depths = (64, 128, 256, 512), (2, 2, 6, 2), (2, 2, 2)
+
+    def dense(level, c_in, c_out):
+        return {"op": "dense", "rows": "voxels", "level": level, "c_in": c_in, "c_out": c_out}
+
+    def stage(level, c, depth):
+        calls = []
+        for i in range(depth):
+            if i % 3 == 2:
+                attn = {"op": "patch_attn", "patch": 512}
+            else:
+                attn = {"op": "window_attn", "window": 4, "shift": 2 if i % 3 == 1 else 0}
+            calls += [dense(level, c, 3 * c),
+                      {**attn, "level": level, "heads": c // 16, "head_dim": 16},
+                      dense(level, c, c), dense(level, c, 4 * c), dense(level, 4 * c, c)]
+        return calls
+
+    calls = [{"op": "sub3", "level": 0, "c_in": 6, "c_out": dims[0]}]
+    for level, (c, depth) in enumerate(zip(dims, depths)):
+        if level:
+            calls.append({"op": "down2", "level": level - 1, "c_in": dims[level - 1], "c_out": c})
+        calls += stage(level, c, depth)
+    for level in reversed(range(len(dec_depths))):
+        calls += [{"op": "up2", "level": level, "c_in": dims[level + 1], "c_out": dims[level]},
+                  dense(level, 2 * dims[level], dims[level])]
+        calls += stage(level, dims[level], dec_depths[level])
+    return calls + [dense(0, dims[0], 20)]
+
+
+SPACEFORMER = {"name": "spaceformer-fixture", "n_cap": 262144, "levels": 4,
+               "level_cap_floor": 128, "conv_dtype": "bfloat16", "trunk_dtype": "float32",
+               "calls": spaceformer_calls()}
+
+
+@pytest.fixture(scope="module")
+def spaceformer_counts():
+    """The counts of the benchmark's training pool of 80k and 120k samples
+    (one batch of two scenes)."""
+    mix = {**spec.traffic("train"), "pairs": 1}
+    pool = traffic.make_pool(mix, 6, 2 ** 31 + 29, "cpu", SPACEFORMER["n_cap"])
+    return work.pool_counts(pool, SPACEFORMER, SPACEFORMER["n_cap"])[0]
+
+
+def test_spaceformer_call_table_counts_window_attention_by_its_bytes(spaceformer_counts):
+    """16 of the 18 blocks attend within windows: under 1% of a forward's
+    FLOPs (0.8-1.0% on this pool), but about four fifths of the bytes
+    counted (79-80%: dense layers count none, convs few)."""
+    calls = SPACEFORMER["calls"]
+    assert sum(c["op"] == "window_attn" for c in calls) == 16
+    assert sum(c["op"] == "patch_attn" for c in calls) == 2
+    assert work.flip_dependent([spaceformer_counts]) == []
+    for sc in spaceformer_counts:
+        assert sc["dropped"] == 0 and set(sc["windows"]) == {
+            (lv, 4, s) for lv in range(4) for s in (0, 2)}
+        for (lv, _, _), p in sc["windows"].items():
+            assert sc["cells"][lv] < p < 64 * sc["cells"][lv]
+        fwd = work.batch_work([sc], SPACEFORMER, False)
+        flops = sum(f for _, _, f, _ in fwd)
+        nbytes = sum(b for _, _, _, b in fwd)
+        win_f = sum(f for _, op, f, _ in fwd if op == "window_attn")
+        win_b = sum(b for _, op, _, b in fwd if op == "window_attn")
+        assert 0.004 <= win_f / flops <= 0.02, win_f / flops
+        assert 0.6 <= win_b / nbytes <= 0.95, win_b / nbytes
+        assert {op for _, op, _, _ in fwd} == {"sub3", "down2", "up2", "dense", "window_attn",
+                                               "patch_attn"}
+    step = work.batch_work(spaceformer_counts, SPACEFORMER, True)
+    assert {k for k, op, _, _ in step if op == "window_attn"} == {"attn", "attn_bwd"}
 
 
 def _ctx(config, traced_work, seconds, kernel):
